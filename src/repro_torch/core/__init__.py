@@ -1,0 +1,24 @@
+"""The paper's line detector in PyTorch: Canny (conv kernel) -> Hough vote
+(vote kernel) -> get-lines-coordinates, with the paper's float->int rewrite
+and phase profiling."""
+
+from .canny import (  # noqa: F401
+    GAUSS_5x5, SOBEL_X, SOBEL_Y, CannyConfig, canny, estimate_edge_count,
+    estimate_edge_count_device,
+)
+from .hough import (  # noqa: F401
+    HoughConfig, auto_max_edges, hough_transform, hough_transform_tiered,
+    max_edge_tiers, resolve_max_edges, rho_bins,
+)
+from .lines import (  # noqa: F401
+    LinesConfig, get_lines, peak_segments, render_lines,
+)
+from .plan import (  # noqa: F401
+    DetectionPlan, PlanCache, batch_bucket, load_frame, resolve_static,
+)
+from .metrics import (  # noqa: F401
+    DetectionScore, aggregate_scores, match_peaks, score_batch, score_frame,
+)
+from .pipeline import DetectionResult, LineDetector, PipelineConfig  # noqa: F401
+from .profiling import PhaseProfiler, StageCost, line_detection_costs  # noqa: F401
+from .quantize import Quantized, quantize_frames  # noqa: F401
