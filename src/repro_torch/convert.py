@@ -28,13 +28,22 @@ def pipeline_config_from_reference(d: dict) -> PipelineConfig:
     """The port's ``PipelineConfig`` for ``dataclasses.asdict(reference)``.
 
     Unknown fields raise (TypeError from the dataclass), so a config the
-    port cannot express is never dropped silently.
+    port cannot express is never dropped silently.  The reference's
+    ``HoughConfig.impl`` (a kernel mode) and ``corridors`` (the fused path's
+    pre-filter) have no field in the port: a kernel mode is dropped, and
+    anything else raises.
     """
     d = dict(d)
     canny = dict(d.pop("canny"))
     canny["impl"] = _impl(canny.get("impl"))
     hough = dict(d.pop("hough"))
-    hough["impl"] = _impl(hough.get("impl"))
+    impl = _impl(hough.pop("impl", None))
+    if impl is not None:
+        raise ValueError(f"the port's vote has no impl {impl!r}")
+    if hough.pop("corridors", None) is not None:
+        raise NotImplementedError(
+            "HoughConfig.corridors belongs to the fused detection path, "
+            "which is not ported yet (see ROADMAP.md)")
     return PipelineConfig(
         canny=CannyConfig(**canny),
         hough=HoughConfig(**hough),

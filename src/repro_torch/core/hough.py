@@ -33,7 +33,6 @@ class HoughConfig:
     n_theta: int = 180          # 1-degree bins, theta in [0, 180)
     rho_res: float = 1.0        # rho bin width (pixels)
     edge_threshold: float = 250.0  # paper: image[i*width+j] >= 250
-    impl: str | None = None     # kept for the reference's field set; None only
     # Edge compaction: vote over at most ``max_edges`` compacted edge pixels
     # (None: 1/16 of the pixel count; "auto": sized from the edge count).
     compact: bool = False
@@ -41,16 +40,6 @@ class HoughConfig:
     # Prediction-gated voting: a static band width; the bin values come
     # with each call (the tracker slides the gate per frame).
     theta_band: int | None = None
-    # Rho-corridor pre-filter of the fused path (a later slice); kept so
-    # configs round-trip with the reference.
-    corridors: int | None = None
-
-    def __post_init__(self):
-        if self.impl is not None:
-            raise ValueError(
-                f"HoughConfig.impl must be None (the vote kernel, or its "
-                f"plain version on the CPU), got {self.impl!r}"
-            )
 
 
 # Corridor windows wider than any image diagonal: (-INF, INF) passes all.

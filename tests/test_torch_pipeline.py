@@ -90,14 +90,23 @@ def test_platforms_round_trip():
     for name, jcfg in JPLATFORMS.items():
         d = dataclasses.asdict(jcfg)
         cfg = pipeline_config_from_reference(d)
-        assert dataclasses.asdict(cfg) == d, name
+        # the port's HoughConfig has no kernel mode and no fused-path field
+        want = {**d, "hough": dict(d["hough"])}
+        assert want["hough"].pop("impl") is None, name
+        assert want["hough"].pop("corridors") is None, name
+        assert dataclasses.asdict(cfg) == want, name
         assert cfg == PLATFORMS[name], name
 
 
 def test_conversion_maps_kernel_modes_and_rejects_unknown_fields():
     d = dataclasses.asdict(JPipeline())
     d["canny"]["impl"] = "xla"
+    d["hough"]["impl"] = "pallas"
     assert pipeline_config_from_reference(d).canny.impl is None
+    d["hough"]["corridors"] = 2
+    with pytest.raises(NotImplementedError, match="corridors"):
+        pipeline_config_from_reference(d)
+    d["hough"]["corridors"] = None
     d["canny"]["shiny"] = True
     with pytest.raises(TypeError):
         pipeline_config_from_reference(d)
