@@ -5,13 +5,25 @@
 
 Builds the hand CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 the git-ignored ``build/``), holds each kernel against its plain PyTorch
-version on the card, drives the staged line detector through
-``LineDetector.detect_batch`` at the deployment resolution (720x1280,
-batch 8) and checks it against the port's own CPU run of the same frames,
-gates per-family F1 at 240x320 against
+version (``fused_detect`` bit for bit, on a CPU copy, and against the
+card's own staged Canny -> threshold -> corridor -> compaction), and drives
+the port's main paths at the deployment resolution 720x1280, each checked
+against the port's own CPU run of the same frames with the launch counts
+zeroed just before it and read just after:
+
+  * the staged detector, ``LineDetector.detect_batch`` on 8 frames, for the
+    f32 ("boom") and integer ("boom+gemmini") Canny;
+  * the batched fused detector, ``PipelineConfig(fused=True)``, 8 frames;
+  * the tracking slice, ``TrackingPipeline(theta_band=40,
+    fused_corridors=8)`` on the 32-frame "converging" drive cycle, each
+    frame on its path (fused, gated or full sweep).
+
+It also gates per-family F1 at 240x320 against
 ``benchmarks/baselines/f1_baseline.json``, streams under
 ``torch.cuda.set_sync_debug_mode("error")``, and times each kernel beside
-its bound, its plain version and one PyTorch library call.
+its bound, its plain version and one PyTorch library call where one
+computes the same function, the fused plan against the gated staged plan,
+and the tracking loop.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -52,6 +64,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tracker_corridors(truth, n: int, half: float = 25.0):
+    """(n, 4) rows ``[cos, sin, rho - half, rho + half]`` around each truth
+    line, padded by repeating the first, as ``LaneTracker.corridors``
+    builds them around its predictions."""
+    import numpy as np
+
+    rows = [[math.cos(th), math.sin(th), rho - half, rho + half]
+            for rho, th in truth]
+    rows += [rows[0]] * (n - len(rows))
+    return np.asarray(rows, np.float32)
+
+
 def main() -> int:
     import torch
 
@@ -62,16 +86,22 @@ def main() -> int:
 
     import numpy as np
 
+    import dataclasses
+
     from repro_torch.configs.paper_lines import DEPLOY_HW, FRAME_HW, PLATFORMS
     from repro_torch.core import (
         CannyConfig, HoughConfig, LineDetector, PipelineConfig,
-        aggregate_scores, canny, score_batch,
+        TrackingPipeline, aggregate_scores, canny, full_corridors,
+        score_batch,
     )
     from repro_torch.core.canny import GAUSS_NORM, device_masks
     from repro_torch.core.hough import _device_raster, hough_trig, rho_bins
-    from repro_torch.data import scenario_batch, scenario_names, scenario_stream
+    from repro_torch.data import (
+        make_drive_cycle, scenario_batch, scenario_names, scenario_stream,
+    )
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import conv2d_gemm as conv_mod
+    from repro_torch.kernels import fused_detect as fused_mod
     from repro_torch.kernels import hough_vote as vote_mod
 
     # the plain versions run on the card here: full f32, no TF32
@@ -205,6 +235,74 @@ def main() -> int:
     if bad:
         raise SystemExit(f"kernel checks failed: {bad}")
 
+    # fused_detect: bit-exact against its plain version run on the card
+    # (the staged canny -> threshold -> corridor -> compact_edges, with the
+    # conv kernel's arithmetic), and against the plain version on a CPU
+    # copy wherever the plain version's own card and CPU runs agree.  They
+    # can disagree only through the conv's summation order (im2col einsum
+    # on the CPU, an FMA chain on the card); each check counts the edge
+    # pixels where they do.
+    real_cor = tracker_corridors(truths[1], 8)   # the converging frame
+    fused_cases = [
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(), None, cap),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(), real_cor, cap),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(), full_corridors(8), cap),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(), real_cor, 512),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(integer=True), None, cap),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(fused=True), None, cap),
+        ("main", (DEPLOY_BATCH, H, W), CannyConfig(variant="paper"), None,
+         cap),
+    ]
+    for shape in ((3, 45, 70), (1, 21, 19)):
+        for cfg_small in (CannyConfig(), CannyConfig(integer=True),
+                          CannyConfig(fused=True),
+                          CannyConfig(variant="paper"),
+                          CannyConfig(hysteresis_iters=30, border=0)):
+            fused_cases.append(("random", shape, cfg_small,
+                                np.array([[0.6, 0.8, 5.0, 40.0]] * 2,
+                                         np.float32), 256))
+            fused_cases.append(("random", shape, cfg_small, None, 64))
+    fused_checks, fused_err = [], 0.0
+    for source, shape, ccfg, cor, me in fused_cases:
+        x = (torch.from_numpy(frames) if source == "main" else
+             torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)))
+        cor_t = None if cor is None else torch.from_numpy(cor)
+        got = fused_mod.fused_detect(
+            x.to(dev), None if cor_t is None else cor_t.to(dev), cfg=ccfg,
+            edge_threshold=250.0, max_edges=me)
+        torch.cuda.synchronize()
+        got = [t.cpu() for t in got]
+        want = ref.fused_detect(x, cfg=ccfg, edge_threshold=250.0,
+                                max_edges=me, corridors=cor_t)
+        w_card = ref.fused_weights(x.to(dev), cfg=ccfg, edge_threshold=250.0,
+                                   corridors=None if cor_t is None
+                                   else cor_t.to(dev))
+        staged = [t.cpu() for t in ops.compact_edges(
+            _device_raster(shape[1], shape[2], dev), w_card, max_edges=me)]
+        w_cpu = ref.fused_weights(x, cfg=ccfg, edge_threshold=250.0,
+                                  corridors=cor_t)
+        plain_differ = int((w_card.cpu() != w_cpu).sum())
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        same_staged = all(torch.equal(a, b) for a, b in zip(got, staged))
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, staged))
+        fused_err = max(fused_err, err)
+        fused_checks.append({
+            "kernel": "fused_detect", "frames": source, "shape": list(shape),
+            "cfg": {k: v for k, v in dataclasses.asdict(ccfg).items()
+                    if v != getattr(CannyConfig(), k)},
+            "corridors": None if cor is None else len(cor),
+            "max_edges": me, "counts": got[2].tolist(),
+            "bit_exact_vs_card_plain": same_staged,
+            "bit_exact_vs_cpu_plain": same,
+            "plain_edge_pixels_differing_card_vs_cpu": plain_differ,
+            "max_abs_err": err,
+            "ok": same_staged and (same or plain_differ > 0)})
+    emit({"phase": "fused_vs_plain", "checks": fused_checks})
+    bad = [c for c in fused_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"fused_detect checks failed: {bad}")
+
     # --- 3. the main path at 720x1280, batch 8 -----------------------------
     # Each path runs with the launch counts zeroed just before it and read
     # just after: one batch is two conv launches (Gauss, then the Sobel
@@ -244,6 +342,82 @@ def main() -> int:
           "families": list(MAIN_FAMILIES), "launches_by_path": launches,
           "results": main})
 
+    # --- 3b. the batched fused detector at 720x1280, batch 8 -------------
+    cfg_fused = PipelineConfig(hough=auto, fused=True)
+    det_fused = LineDetector(cfg_fused)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res_fused = det_fused.detect_batch(frames)
+    torch.cuda.synchronize()
+    launches["fused_detector"] = ops.launch_counts()
+    want = LineDetector(cfg_fused, device="cpu").detect_batch(frames)
+    fused_main = {
+        "peaks_equal_cpu": torch.equal(res_fused.peaks.cpu(), want.peaks),
+        "valid_equal_cpu": torch.equal(res_fused.valid.cpu(), want.valid),
+        "peaks_equal_staged_boom": torch.equal(res_fused.peaks,
+                                               res["boom"].peaks),
+        "valid_equal_staged_boom": torch.equal(res_fused.valid,
+                                               res["boom"].valid),
+        "lines_max_abs_err_vs_cpu": (res_fused.lines.cpu()
+                                     - want.lines).abs().max().item(),
+        "lines_valid": int(want.valid.sum()),
+    }
+    emit({"phase": "fused_detector", "hw": [H, W], "batch": DEPLOY_BATCH,
+          "launches": launches["fused_detector"], "results": fused_main})
+    if not all(v for k, v in fused_main.items() if k.endswith(("_cpu",
+                                                               "_boom"))):
+        raise SystemExit(f"fused detector differs: {fused_main}")
+
+    # --- 3c. the tracking slice: a 32-frame drive cycle at 720x1280 ------
+    cycle = make_drive_cycle("converging", 32, H, W, seed=0)
+    track_cfg = PipelineConfig(hough=auto)
+
+    def track_run(device):
+        tp = TrackingPipeline(track_cfg, height=H, width=W, theta_band=40,
+                              fused_corridors=8, device=device)
+        frames_out = []
+        for f in cycle:
+            fused_before = tp.fused_frames
+            if device is None:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+            out = tp.process(f.scene.image)
+            path = ("fused" if tp.fused_frames > fused_before
+                    else "gated" if out.gated else "full")
+            counts = None
+            if device is None:
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+            frames_out.append((path, out.result.peaks.cpu(),
+                               out.result.valid.cpu(),
+                               [dataclasses.astuple(t) for t in out.tracks],
+                               counts))
+        return tp, frames_out
+
+    tp_card, on_card = track_run(None)
+    tp_cpu, on_cpu = track_run("cpu")
+    differ = [i for i, (a, b) in enumerate(zip(on_card, on_cpu))
+              if a[0] != b[0] or not torch.equal(a[1], b[1])
+              or not torch.equal(a[2], b[2]) or a[3] != b[3]]
+    track_launches = {}
+    for path, *_, counts in on_card:
+        track_launches.setdefault(path, []).append(counts)
+    n_split = {"fused": tp_card.fused_frames, "gated": tp_card.gated_frames,
+               "full": tp_card.full_frames}
+    emit({"phase": "tracking", "cycle": "converging", "frames": len(cycle),
+          "hw": [H, W], "theta_band": 40, "fused_corridors": 8,
+          "frames_split": n_split,
+          "frames_split_cpu": {"fused": tp_cpu.fused_frames,
+                               "gated": tp_cpu.gated_frames,
+                               "full": tp_cpu.full_frames},
+          "frames_differing_from_cpu": differ,
+          "launches_per_frame_by_path": {
+              p: sorted({json.dumps(c, sort_keys=True) for c in cs})
+              for p, cs in track_launches.items()}})
+    if differ or tp_card.fused_frames != 22:
+        raise SystemExit(f"tracking slice: frames {differ} differ from the "
+                         f"CPU run; split {n_split} (22 fused expected)")
+
     # --- 4. F1 gate at 240x320 against the committed baseline -------------
     baseline = json.loads(
         (ROOT / "benchmarks" / "baselines" / "f1_baseline.json").read_text()
@@ -278,13 +452,24 @@ def main() -> int:
     if len(out) != 20 or not stream_eq:
         raise SystemExit("detect_stream disagrees with detect_batch")
 
-    # --- 6. each main path went through both kernels -----------------------
-    per_batch = {"conv2d_gemm": 2, "hough_vote": 1}
+    # --- 6. each main path went through its kernels -----------------------
+    staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1}
+    fused_call = {"conv2d_gemm": 0, "fused_detect": 1, "hough_vote": 1}
+    expected = {"boom": staged_call, "boom+gemmini": staged_call,
+                "fused_detector": fused_call}
+    wrong = {p: c for p, c in launches.items() if c != expected[p]}
+    per_frame = {"fused": fused_call, "gated": staged_call,
+                 "full": staged_call}
+    for path, cs in track_launches.items():
+        if any(c != per_frame[path] for c in cs):
+            wrong[f"tracking_{path}_frame"] = cs
     emit({"phase": "main_path_launches", "launches_by_path": launches,
-          "expected_per_path": per_batch})
-    wrong = {p: c for p, c in launches.items() if c != per_batch}
+          "expected_per_path": expected,
+          "tracking_expected_per_frame": per_frame,
+          "tracking_frames_checked": {p: len(cs)
+                                      for p, cs in track_launches.items()}})
     if wrong:
-        raise SystemExit(f"main path launches differ from {per_batch}: "
+        raise SystemExit(f"main path launches differ from the contract: "
                          f"{wrong}")
 
     # --- 7. times at the main-path shapes ------------------------------------
@@ -353,8 +538,84 @@ def main() -> int:
     emit({"phase": "conv_times", "by_path": conv_times})
     emit({"phase": "vote_times", "by_path": vote_times})
 
+    # fused_detect at its two main-path shapes: the batched detector's
+    # (8 frames, no corridors) and a tracking frame's (1 frame, 8 real
+    # corridors).  Bound: the frame read once, the whole output buffer
+    # written once; operations: per pixel the Gauss and Sobel FMAs (2 x 43)
+    # and 7 for magnitude and direction, plus 3 per corridor row for each
+    # edge pixel (the kernel tests corridors on edges only).  No PyTorch
+    # call computes this function, so no library time.
+    fused_times = {}
+    cor_dev = torch.from_numpy(real_cor).to(dev)
+    for name, x, c in (("fused_detector", frames_dev, None),
+                       ("tracking_frame", frames_dev[1:2], cor_dev)):
+        n_img = x.shape[0]
+        cxy, cw, cnt = fused_mod.fused_detect(
+            x, c, cfg=CannyConfig(), edge_threshold=250.0, max_edges=cap)
+        edge_px = int((ref.fused_weights(x, cfg=CannyConfig(),
+                                         edge_threshold=250.0) > 0).sum())
+        n_cor = 0 if c is None else c.shape[0]
+        fb, fby = bound_ms(x.numel() * 4 + n_cor * 16
+                           + n_img * cap * 16 + n_img * 4,
+                           x.numel() * 93.0 + edge_px * 3.0 * n_cor)
+        fused_times[name] = {
+            "frames": n_img, "corridors": n_cor, "edge_pixels": edge_px,
+            "rows_kept": int(cnt.sum()), "max_edges": cap,
+            "ms": cuda_ms(lambda: fused_mod.fused_detect(
+                x, c, cfg=CannyConfig(), edge_threshold=250.0,
+                max_edges=cap)),
+            # the plain version on the card: torch ops, with the Canny
+            # conv stages through the conv kernel
+            "plain_ms": cuda_ms(lambda: ref.fused_detect(
+                x, cfg=CannyConfig(), edge_threshold=250.0, max_edges=cap,
+                corridors=c), reps=5),
+            "library_ms": None, "bound_ms": fb, "bound_by": fby,
+        }
+    emit({"phase": "fused_times", "by_shape": fused_times})
+
+    # the fused plan against the gated staged plan on one tracked frame,
+    # same bins and corridors, host clock to synchronize (in turns)
+    tp = TrackingPipeline(track_cfg, height=H, width=W, theta_band=40,
+                          fused_corridors=8)
+    bins = cors = None
+    for f in cycle:
+        bins = tp.tracker.gate_bins(tp.n_theta, band=40)
+        cors = tp.tracker.corridors(8)
+        if bins is not None and cors is not None:
+            break
+        tp.process(f.scene.image)
+    img_dev = torch.from_numpy(f.scene.image.astype(np.float32)).to(dev)
+
+    def plan_ms(run, reps=20):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    plan_cmp = {"frame": f.t, "plain_gated_ms": [], "fused_ms": []}
+    for order in ("gated", "fused", "fused", "gated"):
+        if order == "gated":
+            plan_cmp["plain_gated_ms"].append(plan_ms(
+                lambda: tp.gated_plan.run(img_dev, bins)))
+        else:
+            plan_cmp["fused_ms"].append(plan_ms(
+                lambda: tp.fused_plan.run(img_dev, bins, cors)))
+    t0 = time.perf_counter()
+    tp_timed, _ = track_run(None)
+    loop_s = time.perf_counter() - t0
+    plan_cmp["tracking_loop"] = {
+        "frames": len(cycle), "seconds": loop_s,
+        "frames_per_s": len(cycle) / loop_s,
+        "note": "launch counting syncs each frame; the tracker reads each "
+                "frame's peaks back to the host anyway"}
+    emit({"phase": "fused_plan_vs_gated_plan", "hw": [H, W], **plan_cmp})
+
     e2e = {}
-    for name, d in (("boom", det_boom), ("boom+gemmini", det_int)):
+    for name, d in (("boom", det_boom), ("boom+gemmini", det_int),
+                    ("fused_detector", det_fused)):
         d.detect_batch(frames_dev)
         torch.cuda.synchronize()
         reps = 10
@@ -370,10 +631,10 @@ def main() -> int:
           "input": "device-resident batch, host clock to synchronize",
           "results": e2e})
 
-    # --- 8. where the time goes in a main-path batch ("boom") -------------
-    # Stage times on the stream by CUDA events (gaps where the card waits
-    # for the host's launches included), then one profiled window of three
-    # batches: every GPU activity of the trace, summed by name.
+    # --- 8. where the time goes in a main-path batch ----------------------
+    # "boom": stage times on the stream by CUDA events (gaps where the card
+    # waits for the host's launches included); then, for "boom" and the
+    # fused detector, one profiled window each.
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hough import hough_transform_tiered
@@ -390,37 +651,44 @@ def main() -> int:
         "get_lines": cuda_ms(lambda: get_lines(
             votes8, height=H, width=W, cfg=plan.cfg.lines), reps=10),
     }
-    n_traced = 3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_traced):
-            det_boom.detect_batch(frames_dev)
-        torch.cuda.synchronize()
-    traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_path = ROOT / "build" / "trace_main_path.json"
-    trace_path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace_path))
-    gpu = [e for e in json.loads(trace_path.read_text())["traceEvents"]
-           if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
-    by_name: dict[str, list[float]] = {}
-    for e in gpu:
-        by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
-    busy_ms = sum(sum(v) for v in by_name.values())
-    span_ms = ((max(e["ts"] + e["dur"] for e in gpu)
-                - min(e["ts"] for e in gpu)) / 1e3) if gpu else 0.0
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
-    emit({"phase": "where_the_time_goes", "config": "boom, auto compact",
-          "stage_ms": stage_ms,
-          "traced_batches": n_traced, "gpu_activities": len(gpu),
-          "gpu_activities_per_batch": len(gpu) / n_traced,
-          "device_busy_ms_per_batch": busy_ms / n_traced,
-          "device_span_ms_per_batch": span_ms / n_traced,
-          "device_busy_share_of_span": busy_ms / span_ms if span_ms else None,
-          "traced_wall_ms_per_batch": traced_wall_ms / n_traced,
-          "top": [{"name": k[:90], "calls_per_batch": len(v) / n_traced,
-                   "ms_per_batch": sum(v) / n_traced} for k, v in top],
-          "trace": str(trace_path.relative_to(ROOT))})
+    def profiled(det, config, name, extra):
+        """One profiled window of three batches: every GPU activity of the
+        trace, summed by name."""
+        n_traced = 3
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_traced):
+                det.detect_batch(frames_dev)
+            torch.cuda.synchronize()
+        traced_wall_ms = (time.perf_counter() - t0) * 1e3
+        trace_path = ROOT / "build" / f"trace_{name}.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_path))
+        gpu = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+               if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+        by_name: dict[str, list[float]] = {}
+        for e in gpu:
+            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+        busy_ms = sum(sum(v) for v in by_name.values())
+        span_ms = ((max(e["ts"] + e["dur"] for e in gpu)
+                    - min(e["ts"] for e in gpu)) / 1e3) if gpu else 0.0
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+        emit({"phase": "where_the_time_goes", "config": config, **extra,
+              "traced_batches": n_traced, "gpu_activities": len(gpu),
+              "gpu_activities_per_batch": len(gpu) / n_traced,
+              "device_busy_ms_per_batch": busy_ms / n_traced,
+              "device_span_ms_per_batch": span_ms / n_traced,
+              "device_busy_share_of_span": (busy_ms / span_ms if span_ms
+                                            else None),
+              "traced_wall_ms_per_batch": traced_wall_ms / n_traced,
+              "top": [{"name": k[:90], "calls_per_batch": len(v) / n_traced,
+                       "ms_per_batch": sum(v) / n_traced} for k, v in top],
+              "trace": str(trace_path.relative_to(ROOT))})
+
+    profiled(det_boom, "boom, auto compact", "main_path",
+             {"stage_ms": stage_ms})
+    profiled(det_fused, "fused detector, auto compact", "fused_detector", {})
 
     def conv_numbers(path):
         st = conv_times[path]     # the path's two launches of one batch
@@ -436,10 +704,12 @@ def main() -> int:
         return {k: vote_times[path][k] for k in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
-    # Each kernel's launches and times are those of the "boom" (f32) main
-    # path; "by_path" gives every path's own, each read from its own run.
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # Each staged kernel's launches and times are those of the "boom" (f32)
+    # main path, fused_detect's those of the batched fused detector;
+    # "by_path" gives every path's own, each read from its own run.
     paths = ("boom", "boom+gemmini")
-    emit({"kernels": [
+    kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "path": "boom",
          "launches": launches["boom"][name], "max_abs_err": err,
@@ -452,7 +722,25 @@ def main() -> int:
             ("hough_vote", "src/repro_torch/kernels/csrc/hough_vote.cu",
              "src/repro/kernels/hough_vote.py:108", vote_err, vote_numbers),
         )
-    ]})
+    ]
+    kernels.append({
+        "name": "fused_detect", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_detect.cu",
+        "replaces": "src/repro/kernels/fused_detect.py:83",
+        "path": "fused_detector",
+        "launches": launches["fused_detector"]["fused_detect"],
+        "max_abs_err": fused_err,
+        **{k: fused_times["fused_detector"][k] for k in keys},
+        "by_path": {
+            "fused_detector": {
+                "launches": launches["fused_detector"]["fused_detect"],
+                **{k: fused_times["fused_detector"][k] for k in keys}},
+            "tracking_fused_frame": {
+                "launches": per_frame["fused"]["fused_detect"],
+                "frames": tp_card.fused_frames,
+                **{k: fused_times["tracking_frame"][k] for k in keys}},
+        }})
+    emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

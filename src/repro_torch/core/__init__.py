@@ -1,13 +1,16 @@
 """The paper's line detector in PyTorch: Canny (conv kernel) -> Hough vote
 (vote kernel) -> get-lines-coordinates, with the paper's float->int rewrite
-and phase profiling."""
+and phase profiling; the fused hot path (fused_detect kernel -> vote
+kernel); and the temporal layer, lane tracking with prediction-gated and
+corridor-filtered detection."""
 
 from .canny import (  # noqa: F401
     GAUSS_5x5, SOBEL_X, SOBEL_Y, CannyConfig, canny, estimate_edge_count,
     estimate_edge_count_device,
 )
 from .hough import (  # noqa: F401
-    HoughConfig, auto_max_edges, hough_transform, hough_transform_tiered,
+    CORRIDOR_INF, HoughConfig, auto_max_edges, full_corridors, fused_hough,
+    fused_hough_tiered, hough_transform, hough_transform_tiered,
     max_edge_tiers, resolve_max_edges, rho_bins,
 )
 from .lines import (  # noqa: F401
@@ -22,3 +25,7 @@ from .metrics import (  # noqa: F401
 from .pipeline import DetectionResult, LineDetector, PipelineConfig  # noqa: F401
 from .profiling import PhaseProfiler, StageCost, line_detection_costs  # noqa: F401
 from .quantize import Quantized, quantize_frames  # noqa: F401
+from .tracking import (  # noqa: F401
+    LaneTracker, Track, TrackedFrame, TrackerConfig, TrackingPipeline,
+    merge_peaks, signed_residual, tracks_as_peaks, wrap_canonical,
+)

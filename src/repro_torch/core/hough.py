@@ -14,6 +14,11 @@ tier and lets the vote kernel read each frame's exact edge count from
 device memory and skip the rows past it.  That is bit-exact with the
 tiered reference: the count is exact, so only the cap tier can drop edges,
 and it drops the same trailing ones.
+
+The fused hot path (:func:`fused_hough`, :func:`fused_hough_tiered`) goes
+from frames straight to votes: the ``fused_detect`` kernel runs Canny, the
+edge threshold, the tracker's rho-corridor filter and raster compaction,
+and the vote kernel reads its rows.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ class HoughConfig:
     # Prediction-gated voting: a static band width; the bin values come
     # with each call (the tracker slides the gate per frame).
     theta_band: int | None = None
+    # Rho-corridor edge pre-filter of the fused path: a static corridor
+    # count; the (corridors, 4) windows ``[cos, sin, rho_lo, rho_hi]`` come
+    # with each call (``tracking.LaneTracker.corridors``).  None = no filter.
+    corridors: int | None = None
 
 
 # Corridor windows wider than any image diagonal: (-INF, INF) passes all.
@@ -178,6 +187,20 @@ def _hough_transform(edges: torch.Tensor, cfg: HoughConfig = HoughConfig(),
     ``cfg.rho_res`` through the homogeneous third coordinate.  A batch
     (N, H, W) shares one raster coordinate table and votes as one launch.
     """
+    _check_band(theta_bins, cfg)
+    H, W = edges.shape[-2:]
+    n_rho = rho_bins(H, W, cfg)
+    trig = _device_trig(H, W, cfg, edges.device)
+    xy = _device_raster(H, W, edges.device)
+    flat = edges.reshape(edges.shape[:-2] + (H * W,))
+    weights = (flat >= cfg.edge_threshold).to(torch.float32)
+    return ops.hough_vote(
+        xy, weights, trig, n_rho=n_rho, compact=cfg.compact,
+        max_edges=cfg.max_edges, theta_bins=theta_bins, scatter_back=scatter,
+    )
+
+
+def _check_band(theta_bins, cfg: HoughConfig) -> None:
     if (theta_bins is None) != (cfg.theta_band is None):
         raise ValueError(
             "HoughConfig.theta_band and the theta_bins argument come as a "
@@ -189,13 +212,82 @@ def _hough_transform(edges: torch.Tensor, cfg: HoughConfig = HoughConfig(),
             f"theta_bins must have the plan's static band shape "
             f"({cfg.theta_band},); got {tuple(theta_bins.shape)}."
         )
-    H, W = edges.shape[-2:]
-    n_rho = rho_bins(H, W, cfg)
-    trig = _device_trig(H, W, cfg, edges.device)
-    xy = _device_raster(H, W, edges.device)
-    flat = edges.reshape(edges.shape[:-2] + (H * W,))
-    weights = (flat >= cfg.edge_threshold).to(torch.float32)
-    return ops.hough_vote(
-        xy, weights, trig, n_rho=n_rho, compact=cfg.compact,
-        max_edges=cfg.max_edges, theta_bins=theta_bins, scatter_back=scatter,
+
+
+def _check_corridors(corridors, cfg: HoughConfig) -> None:
+    if (corridors is None) != (cfg.corridors is None):
+        raise ValueError(
+            "HoughConfig.corridors and the corridors argument come as a "
+            f"pair (got corridors={cfg.corridors!r}, argument="
+            f"{'set' if corridors is not None else None!r})."
+        )
+    if corridors is not None and tuple(corridors.shape) != (cfg.corridors, 4):
+        raise ValueError(
+            f"corridors must have the plan's static shape "
+            f"({cfg.corridors}, 4); got {tuple(corridors.shape)}."
+        )
+
+
+def fused_hough(image: torch.Tensor, canny_cfg, cfg: HoughConfig,
+                theta_bins: torch.Tensor | None = None,
+                corridors: torch.Tensor | None = None, *,
+                scatter: bool = True) -> torch.Tensor:
+    """The fused hot path: frames -> votes with no edge map in between.
+
+    Kernel A (``ops.fused_detect``) runs Canny, the edge threshold, the
+    corridor filter and raster compaction; kernel B is the vote over the
+    compacted rows, which skips each frame's rows past its device-held
+    count.  Bit-exact with ``canny`` + ``hough_transform`` at full corridor
+    and band coverage whenever the edges fit the buffer.  ``cfg.max_edges``
+    is a resolved int or None (the dense default); ``"auto"`` exists only
+    in tiered form (:func:`fused_hough_tiered`).
+    """
+    if cfg.max_edges == "auto":
+        raise ValueError(
+            "fused_hough cannot resolve max_edges='auto' (there is no "
+            "edge map to count); use fused_hough_tiered."
+        )
+    _check_band(theta_bins, cfg)
+    _check_corridors(corridors, cfg)
+    H, W = image.shape[-2:]
+    max_edges = cfg.max_edges
+    if max_edges is None:
+        max_edges = ops.default_max_edges(H * W)
+    cxy, cw, counts = ops.fused_detect(
+        image, corridors, cfg=canny_cfg, edge_threshold=cfg.edge_threshold,
+        max_edges=max_edges,
     )
+    return ops.hough_vote(
+        cxy, cw, _device_trig(H, W, cfg, image.device),
+        n_rho=rho_bins(H, W, cfg), counts=counts, theta_bins=theta_bins,
+        scatter_back=scatter,
+    )
+
+
+def fused_hough_tiered(image: torch.Tensor, canny_cfg, cfg: HoughConfig,
+                       tiers: tuple[int, ...] | None = None,
+                       theta_bins: torch.Tensor | None = None,
+                       corridors: torch.Tensor | None = None, *,
+                       scatter: bool = True) -> torch.Tensor:
+    """``max_edges="auto"`` on the fused path with no host sync: kernel A
+    compacts into the cap tier ``tiers[-1]`` and the vote skips each
+    frame's rows past its device-held count.
+
+    Bit-exact with the reference's exact-count selector
+    (``_fused_hough_tiered_exact``): the count is exact, so every tier
+    below the cap drops nothing, and the cap drops the same trailing
+    edges.  The reference's other selector, for its Pallas kernel, sizes
+    the buffer from the pre-Canny gradient estimate because a Pallas
+    output shape is fixed before launch; here the cap buffer and the
+    device count make any estimate unnecessary, so it has no counterpart.
+    """
+    if not cfg.compact:
+        return fused_hough(image, canny_cfg,
+                           dataclasses.replace(cfg, max_edges=None),
+                           theta_bins, corridors, scatter=scatter)
+    H, W = image.shape[-2:]
+    if tiers is None:
+        tiers = max_edge_tiers(H, W)
+    return fused_hough(image, canny_cfg,
+                       dataclasses.replace(cfg, max_edges=int(tiers[-1])),
+                       theta_bins, corridors, scatter=scatter)

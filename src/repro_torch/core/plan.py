@@ -4,8 +4,8 @@ A frozen :class:`DetectionPlan` is built once per ``(height, width,
 batch-bucket)`` and pins everything static: the resolved
 :class:`PipelineConfig`, the batch padding bucket, and for
 ``max_edges="auto"`` the static tier set.  ``run`` pads, runs the staged
-detector, and slices; once warm it makes no host round trip on the card
-(``LineDetector.detect_stream`` checks this under
+or the fused detector, and slices; once warm it makes no host round trip
+on the card (``LineDetector.detect_stream`` checks this under
 ``torch.cuda.set_sync_debug_mode("error")``).
 """
 
@@ -21,15 +21,10 @@ from repro_torch.device import resolve_device
 
 from .canny import CannyConfig, canny
 from .hough import (
-    HoughConfig, hough_transform, hough_transform_tiered, max_edge_tiers,
+    HoughConfig, fused_hough, fused_hough_tiered, hough_transform,
+    hough_transform_tiered, max_edge_tiers,
 )
 from .lines import LinesConfig, get_lines, render_lines
-
-_FUSED_LATER = (
-    "the fused detection path (PipelineConfig.fused, the fused_detect "
-    "kernel) is not ported yet; it comes with the tracking slice of the "
-    "port (see ROADMAP.md)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,11 +33,10 @@ class PipelineConfig:
     hough: HoughConfig = HoughConfig()
     lines: LinesConfig = LinesConfig()
     render_output: bool = False   # the paper's elision: off by default
-    fused: bool = False           # not ported yet: raises
-
-    def __post_init__(self):
-        if self.fused:
-            raise NotImplementedError(_FUSED_LATER)
+    # The fused hot path (kernels/fused_detect.py): Canny -> corridor filter
+    # -> compaction -> vote with no edge map in device memory.  Needs
+    # ``hough.compact=True``; the result's ``edges`` is a zero placeholder.
+    fused: bool = False
 
 
 class DetectionResult(NamedTuple):
@@ -95,23 +89,44 @@ def downshift_frame(raw, shape: tuple[int, int]) -> tuple[np.ndarray, int]:
 
 
 def _detect(cfg: PipelineConfig, image: torch.Tensor,
-            theta_bins: torch.Tensor | None = None, *,
+            theta_bins: torch.Tensor | None = None,
+            corridors: torch.Tensor | None = None, *,
             tiers: tuple[int, ...] | None = None) -> DetectionResult:
-    """The staged detection body: Canny -> Hough vote -> get_lines.
+    """The detection body: Canny -> Hough vote -> get_lines, staged or fused.
 
     With ``tiers=None``, ``cfg`` is fully resolved; with a tier tuple (the
-    ``max_edges="auto"`` plan path) the vote compacts into the cap tier and
-    skips each frame's rows past its device-held edge count.
-    ``theta_bins`` (iff ``cfg.hough.theta_band``) is the prediction gate;
-    the votes stay in band space through ``get_lines``.
+    ``max_edges="auto"`` plan path) compaction writes into the cap tier
+    ``tiers[-1]`` and the vote skips each frame's rows past its device-held
+    edge count.  ``theta_bins`` (iff ``cfg.hough.theta_band``) is the
+    prediction gate; the votes stay in band space through ``get_lines``.
+    ``corridors`` (iff ``cfg.hough.corridors``; fused plans only) is the
+    (C, 4) rho-window set that filters edge pixels.
     """
     H, W = image.shape[-2:]
-    edges = canny(image, cfg.canny)
-    if tiers is None:
-        votes = hough_transform(edges, cfg.hough, theta_bins, scatter=False)
+    if cfg.fused:
+        # no edge map exists on this path: the fused kernel emits the
+        # compacted edge list straight from the frames
+        edges = torch.zeros(image.shape, dtype=torch.uint8,
+                            device=image.device)
+        if tiers is None:
+            votes = fused_hough(image, cfg.canny, cfg.hough, theta_bins,
+                                corridors, scatter=False)
+        else:
+            votes = fused_hough_tiered(image, cfg.canny, cfg.hough, tiers,
+                                       theta_bins, corridors, scatter=False)
     else:
-        votes = hough_transform_tiered(edges, cfg.hough, tiers, theta_bins,
-                                       scatter=False)
+        if corridors is not None:
+            raise ValueError(
+                "corridors is a fused-path argument; this plan is staged "
+                "(PipelineConfig.fused=False)"
+            )
+        edges = canny(image, cfg.canny)
+        if tiers is None:
+            votes = hough_transform(edges, cfg.hough, theta_bins,
+                                    scatter=False)
+        else:
+            votes = hough_transform_tiered(edges, cfg.hough, tiers,
+                                           theta_bins, scatter=False)
     lines, valid, peaks = get_lines(
         votes, height=H, width=W, cfg=cfg.lines, theta_bins=theta_bins
     )
@@ -148,7 +163,11 @@ def resolve_static(cfg: PipelineConfig, height: int, width: int
 
 @dataclasses.dataclass(frozen=True)
 class DetectionPlan:
-    """A frozen "how to run" record for one ``(H, W, batch)`` workload."""
+    """A frozen "how to run" record for one ``(H, W, batch)`` workload.
+
+    ``tiers`` keeps the reference's signature; the port reads only its cap,
+    ``tiers[-1]`` (see ``core/hough.py``).
+    """
     cfg: PipelineConfig           # resolved: "auto" only with tiers set
     height: int
     width: int
@@ -158,6 +177,11 @@ class DetectionPlan:
     @classmethod
     def build(cls, cfg: PipelineConfig, height: int, width: int, *,
               batch: int | None = None) -> "DetectionPlan":
+        if cfg.fused and not cfg.hough.compact:
+            raise ValueError(
+                "PipelineConfig.fused requires hough.compact=True: the "
+                "fused kernel's output IS the compacted edge list."
+            )
         resolved, tiers = resolve_static(cfg, height, width)
         return cls(resolved, height, width, batch, tiers)
 
@@ -182,24 +206,42 @@ class DetectionPlan:
         )
 
     def with_fused(self, corridors: int | None = None) -> "DetectionPlan":
-        raise NotImplementedError(_FUSED_LATER)
+        """The fused-hot-path twin of this plan, with the corridor filter
+        bound to a static corridor count (``None`` = no filter); the
+        windows are passed to ``run``.  Requires ``hough.compact=True``."""
+        cfg = dataclasses.replace(
+            self.cfg, fused=True,
+            hough=dataclasses.replace(self.cfg.hough, corridors=corridors),
+        )
+        if cfg == self.cfg:
+            return self
+        if not cfg.hough.compact:
+            raise ValueError(
+                "with_fused requires hough.compact=True: the fused "
+                "kernel's output IS the compacted edge list."
+            )
+        return dataclasses.replace(self, cfg=cfg)
 
     def run(self, images: torch.Tensor, theta_bins=None, corridors=None
             ) -> DetectionResult:
         """Detect on a frame (H, W) or a batch (N <= bucket, H, W).
 
         A short batch pads with zero frames (every stage is
-        frame-independent) and the result is sliced back.
+        frame-independent) and the result is sliced back.  ``theta_bins``
+        (iff the config sets ``theta_band``) and ``corridors`` (iff it sets
+        ``hough.corridors``; shipped as f32) are shared by the batch.
         """
-        if corridors is not None:
-            raise NotImplementedError(_FUSED_LATER)
         if theta_bins is not None:
             theta_bins = torch.as_tensor(theta_bins, device=images.device)
+        if corridors is not None:
+            corridors = torch.as_tensor(corridors, dtype=torch.float32,
+                                        device=images.device)
         if images.shape[-2:] != (self.height, self.width):
             raise ValueError(f"images {tuple(images.shape)} do not fit the "
                              f"plan's {self.height}x{self.width}")
         if self.batch is None:
-            return _detect(self.cfg, images, theta_bins, tiers=self.tiers)
+            return _detect(self.cfg, images, theta_bins, corridors,
+                           tiers=self.tiers)
         n = images.shape[0]
         if images.ndim != 3 or n > self.batch:
             raise ValueError(f"images {tuple(images.shape)} do not fit the "
@@ -209,7 +251,8 @@ class DetectionPlan:
                 images,
                 images.new_zeros((self.batch - n, self.height, self.width)),
             ])
-        res = _detect(self.cfg, images, theta_bins, tiers=self.tiers)
+        res = _detect(self.cfg, images, theta_bins, corridors,
+                      tiers=self.tiers)
         if n == self.batch:
             return res
         return DetectionResult(

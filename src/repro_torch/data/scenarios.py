@@ -24,9 +24,13 @@ Registry API:
     (``name="mixed"`` rotates through every family — the heterogeneous
     stream ``LineDetector.detect_stream`` is exercised on).
 
-A numpy copy of ``repro/data/scenarios.py`` up to ``scenario_stream``, so
-the port makes the same frames from the same seeds without importing the
-reference; the drive cycles come with the tracking slice.
+Drive cycles (``make_drive_cycle``, ``standard_drive_cycle``) carry one
+base scene through rigid ego-motion, frame by frame, with the exact
+(rho, theta) truth of every frame: the tracker's workload.
+
+A numpy copy of ``repro/data/scenarios.py`` up to ``standard_drive_cycle``,
+so the port makes the same frames from the same seeds without importing the
+reference; the closed-loop cycle comes with the control module.
 """
 
 from __future__ import annotations
@@ -400,3 +404,215 @@ def scenario_stream(name: str, n_frames: int, height: int = 240,
     else:
         for t in range(n_frames):
             yield make_scenario(name, height, width, seed=seed + t)
+
+
+# ---------------------------------------------------------------------------
+# drive cycles: temporal sequences with analytic (rho, theta) trajectories
+# ---------------------------------------------------------------------------
+
+#: Families whose per-frame detection is noisy enough that the temporal
+#: layer must beat it (tracked F1 >= per-frame F1 on their drive cycles).
+NOISY_FAMILIES: tuple[str, ...] = ("rain", "night", "glare")
+
+
+@dataclasses.dataclass(frozen=True)
+class DriveCycleFrame:
+    """One frame of a drive cycle: a valid RoadScene plus its provenance."""
+    scene: RoadScene          # warped image + exactly transformed truth
+    t: int                    # frame index within the cycle
+    dropout: bool             # camera blackout: lanes exist, signal doesn't
+    noise_burst: bool         # extra speckle burst on top of the family
+    dx_px: float              # ego lateral translation applied this frame
+    yaw_deg: float            # ego rotation applied this frame
+    dy_px: float = 0.0        # ego longitudinal translation (surge/bob)
+
+
+@dataclasses.dataclass(frozen=True)
+class DriveCycle:
+    """A drive-cycle sequence over one scenario family.
+
+    Frame-to-frame continuity comes from rigid ego-motion over a single
+    base scene: every frame is the SAME world (same asphalt texture, same
+    planted strokes) seen through a camera that sways, yaws through a
+    curvature ramp, and executes a lane change — so the per-frame
+    ``lines_rho_theta`` is an exact analytic trajectory, not a re-rolled
+    random scene.  Dropout frames keep their trajectory truth (the lanes
+    are still there; the camera failed) and carry ``dropout=True`` so the
+    harness knows the detector *should* see nothing while a tracker
+    *should* coast.
+    """
+    family: str
+    frames: tuple[DriveCycleFrame, ...]
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def __iter__(self) -> Iterator[DriveCycleFrame]:
+        return iter(self.frames)
+
+    def images(self) -> list[np.ndarray]:
+        return [f.scene.image for f in self.frames]
+
+    def truths(self) -> list[np.ndarray]:
+        return [f.scene.lines_rho_theta for f in self.frames]
+
+
+def _smoothstep(u: np.ndarray | float) -> np.ndarray | float:
+    u = np.clip(u, 0.0, 1.0)
+    return u * u * (3.0 - 2.0 * u)
+
+
+def transform_rho_theta(rho: float, theta: float, *, yaw_rad: float,
+                        dx: float, dy: float, cx: float, cy: float
+                        ) -> tuple[float, float]:
+    """Exact (rho, theta) image of a line under the rigid ego-motion
+    ``q = R_yaw (p - c) + c + (dx, dy)`` (rotation about the frame center,
+    then translation), canonicalized to theta in [0, pi).
+
+    Derivation: the mapped line's normal rotates with the frame
+    (theta' = theta + yaw) and its offset picks up the center swing plus
+    the translation's projection on the new normal:
+    ``rho' = rho - c.n + c.n' + t.n'``.
+    """
+    tp = theta + yaw_rad
+    n = (math.cos(theta), math.sin(theta))
+    np_ = (math.cos(tp), math.sin(tp))
+    rp = (rho - (cx * n[0] + cy * n[1])
+          + (cx * np_[0] + cy * np_[1]) + dx * np_[0] + dy * np_[1])
+    # Canonicalize with a true modulo, not a single +-pi correction: the
+    # closed-loop harness accumulates yaw without bound, so tp can land
+    # any number of wraps outside [0, pi).  Each pi-wrap flips the normal,
+    # so rho's sign flips once per wrap parity.
+    k = math.floor(tp / math.pi)
+    tp -= k * math.pi
+    if tp >= math.pi:       # guard the floor's float edge
+        tp -= math.pi
+        k += 1
+    if k % 2:
+        rp = -rp
+    return rp, tp
+
+
+def _warp_rigid(img: np.ndarray, *, yaw_rad: float, dx: float, dy: float,
+                fill: float) -> np.ndarray:
+    """Nearest-neighbour inverse warp of the forward map in
+    ``transform_rho_theta``; samples leaving the base frame read ``fill``
+    (the family's asphalt level, so the revealed border stays textureless
+    and under the Canny thresholds)."""
+    H, W = img.shape
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    qx, qy = xx - cx - dx, yy - cy - dy
+    c, s = math.cos(yaw_rad), math.sin(yaw_rad)
+    sx = np.rint(c * qx + s * qy + cx).astype(np.int64)
+    sy = np.rint(-s * qx + c * qy + cy).astype(np.int64)
+    inside = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < H)
+    out = np.full((H, W), np.uint8(np.clip(round(fill), 0, 255)))
+    out[inside] = img[sy[inside], sx[inside]]
+    return out
+
+
+def make_drive_cycle(family: str, n_frames: int, height: int = 240,
+                     width: int = 320, *, seed: int = 0,
+                     sway_px: float = 5.0, sway_period: float = 32.0,
+                     surge_px: float = 0.0, surge_period: float = 24.0,
+                     yaw_amp_deg: float = 2.5,
+                     lane_change_at: int | None = None,
+                     lane_change_px: float | None = None,
+                     lane_change_len: int = 12,
+                     dropout_frames: Sequence[int] = (),
+                     noise_burst_frames: Sequence[int] = (),
+                     burst_frac: float = 0.012) -> DriveCycle:
+    """Parameterized ego-motion over one scenario family.
+
+    The base scene is generated ONCE (``make_scenario(family, seed)``) and
+    every frame applies a rigid camera motion to it — sinusoidal lateral
+    sway (``sway_px``/``sway_period``), sinusoidal longitudinal surge/bob
+    (``surge_px``/``surge_period``, the ``dy`` leg of the rigid motion),
+    a curvature ramp that yaws up to
+    ``yaw_amp_deg`` mid-cycle and back (half-sine), and an optional
+    s-curve lane change of ``lane_change_px`` (default 12% of the width)
+    over ``lane_change_len`` frames centered at ``lane_change_at``.  The
+    per-frame (rho, theta) ground truth is the exact analytic image of the
+    planted lines under the same transform (``transform_rho_theta``), so
+    trajectory-recovery assertions carry no fitting slack beyond the
+    warp's nearest-neighbour rasterization.
+
+    ``dropout_frames`` replace the listed frames with near-black sensor
+    blackout (truth retained, ``dropout=True``); ``noise_burst_frames``
+    overlay an extra salt-and-pepper burst.  Both draw from rngs seeded by
+    ``(seed, t)`` — the whole cycle is bit-reproducible.
+    """
+    base = make_scenario(family, height, width, seed=seed)
+    cy, cx = (height - 1) / 2.0, (width - 1) / 2.0
+    fill = float(np.median(base.image))
+    if lane_change_px is None:
+        lane_change_px = 0.12 * width
+    dropout_set = set(int(t) for t in dropout_frames)
+    burst_set = set(int(t) for t in noise_burst_frames)
+    span = max(n_frames - 1, 1)
+
+    frames: list[DriveCycleFrame] = []
+    for t in range(n_frames):
+        dx = sway_px * math.sin(2.0 * math.pi * t / sway_period)
+        dy = surge_px * math.sin(2.0 * math.pi * t / surge_period)
+        if lane_change_at is not None:
+            u = (t - (lane_change_at - lane_change_len / 2.0)) / max(
+                lane_change_len, 1
+            )
+            dx += lane_change_px * float(_smoothstep(u))
+        yaw = math.radians(yaw_amp_deg) * math.sin(math.pi * t / span)
+
+        truth = np.array(
+            [
+                transform_rho_theta(float(r), float(th), yaw_rad=yaw,
+                                    dx=dx, dy=dy, cx=cx, cy=cy)
+                for r, th in base.lines_rho_theta
+            ],
+            np.float32,
+        ).reshape(-1, 2)
+
+        if t in dropout_set:
+            rng = np.random.default_rng([seed, 7_000_000 + t])
+            img = np.clip(
+                rng.normal(10.0, 3.0, (height, width)), 0, 255
+            ).astype(np.uint8)
+        else:
+            img = _warp_rigid(base.image, yaw_rad=yaw, dx=dx, dy=dy,
+                              fill=fill)
+            if t in burst_set:
+                rng = np.random.default_rng([seed, 9_000_000 + t])
+                speck = rng.uniform(size=img.shape)
+                img = img.copy()
+                img[speck < burst_frac] = 255
+                img[speck > 1.0 - burst_frac] = 0
+
+        frames.append(DriveCycleFrame(
+            scene=RoadScene(img, truth), t=t,
+            dropout=t in dropout_set, noise_burst=t in burst_set,
+            dx_px=dx, yaw_deg=math.degrees(yaw), dy_px=dy,
+        ))
+    return DriveCycle(family, tuple(frames))
+
+
+def standard_drive_cycle(family: str, n_frames: int = 48,
+                         height: int = 240, width: int = 320, *,
+                         seed: int = 0) -> DriveCycle:
+    """The canonical cycle the test harness, the tracking benchmark, and
+    the CI F1 gate all share: sway + curvature ramp + a mid-cycle lane
+    change, with a 3-frame dropout and a 4-frame noise burst added on the
+    noisy families (``NOISY_FAMILIES``) — the regime where the temporal
+    layer must beat per-frame detection."""
+    noisy = family in NOISY_FAMILIES
+    third = n_frames // 3
+    return make_drive_cycle(
+        family, n_frames, height, width, seed=seed,
+        lane_change_at=n_frames // 2,
+        # a lane change is seconds of driving: stretch it with the cycle
+        # so its peak pixel velocity stays trackable at any length
+        lane_change_len=max(12, n_frames // 2),
+        dropout_frames=tuple(range(third, third + 3)) if noisy else (),
+        noise_burst_frames=(
+            tuple(range(2 * third, 2 * third + 4)) if noisy else ()
+        ),
+    )

@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("conv2d", "hough_vote")
+SOURCES = ("conv2d", "hough_vote", "fused_detect")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

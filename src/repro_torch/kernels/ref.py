@@ -11,6 +11,8 @@ Run on the card, the matmul-based versions need TF32 off
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -198,7 +200,79 @@ def corridor_keep(xy: torch.Tensor, corridors: torch.Tensor) -> torch.Tensor:
     ``corridors`` is (C, 4) rows ``[cos, sin, rho_lo, rho_hi]`` in signed,
     unshifted rho; ``xy`` is (..., P, >=2) with columns (x, y, ...).
     Returns (..., P) bool.
+
+    ``rho = x*c + y*s`` is two rounded products and one rounded add, as
+    the reference's K=2 dot rounds on the CPU; ``torch.matmul`` would
+    compute ``fma(y, s, x*c)`` there, one ulp off for about a quarter of
+    the raster, and move pixels that lie on a corridor bound.
     """
     cor = corridors.to(torch.float32)
-    rho = xy[..., :2].to(torch.float32) @ cor[:, :2].T
+    xyf = xy[..., :2].to(torch.float32)
+    rho = xyf[..., 0:1] * cor[:, 0] + xyf[..., 1:2] * cor[:, 1]
     return ((rho >= cor[:, 2]) & (rho <= cor[:, 3])).any(dim=-1)
+
+
+def fused_weights(image: torch.Tensor, *, cfg, edge_threshold: float,
+                  corridors: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat edge weights of the fused hot path before compaction.
+
+    The whole Canny front end (``impl`` ignored, as the reference pins it),
+    the staged path's edge threshold, and a zero weight for every pixel
+    outside all ``corridors``.  Returns (..., H*W) f32.
+    """
+    from repro_torch.core.canny import canny  # function-level: cycle
+
+    edges = canny(image, dataclasses.replace(cfg, impl=None))
+    H, W = edges.shape[-2:]
+    w = (edges.reshape(edges.shape[:-2] + (H * W,)) >= edge_threshold).to(
+        torch.float32)
+    if corridors is not None:
+        ii, jj = torch.meshgrid(torch.arange(H, device=w.device),
+                                torch.arange(W, device=w.device),
+                                indexing="ij")
+        xy = torch.stack([jj.reshape(-1), ii.reshape(-1)], dim=1).to(
+            torch.float32)
+        w = w * corridor_keep(xy, corridors).to(torch.float32)
+    return w
+
+
+def compact_raster(weights: torch.Tensor, *, width: int, max_edges: int):
+    """Raster-layout compaction: scatter flat pixel indices, then rebuild
+    ``(idx % width, idx // width, 1)``.
+
+    ``weights`` is (P,) or (N, P).  Returns ``(cxy, cw, counts)``:
+    (..., max_edges, 3) and (..., max_edges) f32 in raster order, zero past
+    each frame's count, and the per-frame count of rows kept, int32 on the
+    weights' device.  Edges beyond ``max_edges`` land in a spare row
+    ``max_edges`` that is sliced off (the reference's ``mode="drop"``).
+    """
+    squeeze = weights.ndim == 1
+    w = weights[None] if squeeze else weights
+    N, P = w.shape
+    dev = w.device
+    mask = w > 0
+    pos = torch.cumsum(mask, dim=-1) - 1
+    pos = torch.where(mask & (pos < max_edges), pos, max_edges)
+    idx = torch.zeros((N, max_edges + 1), dtype=torch.int64, device=dev)
+    idx.scatter_(1, pos, torch.arange(P, device=dev).expand(N, P))
+    idx = idx[:, :max_edges]
+    counts = mask.sum(dim=-1, dtype=torch.int32).clamp_(max=max_edges)
+    slot = torch.arange(max_edges, device=dev)[None, :] < counts[:, None]
+    cw = torch.where(slot, torch.gather(w, 1, idx), 0.0)
+    cxy = torch.stack([(idx % width).to(torch.float32),
+                       (idx // width).to(torch.float32),
+                       torch.ones_like(idx, dtype=torch.float32)], dim=-1)
+    cxy = torch.where(slot[..., None], cxy, 0.0)
+    if squeeze:
+        return cxy[0], cw[0], counts[0]
+    return cxy, cw, counts
+
+
+def fused_detect(image: torch.Tensor, *, cfg, edge_threshold: float,
+                 max_edges: int, corridors: torch.Tensor | None = None):
+    """The fused hot path's front end: Canny -> threshold -> corridor filter
+    -> raster compaction.  (H, W) or (N, H, W) frames -> ``(cxy, cw,
+    counts)`` as :func:`compact_raster` returns them."""
+    w = fused_weights(image, cfg=cfg, edge_threshold=edge_threshold,
+                      corridors=corridors)
+    return compact_raster(w, width=image.shape[-1], max_edges=max_edges)

@@ -253,10 +253,60 @@ def test_grad_hits_and_corridor_keep_match_reference(rng):
     )
 
 
+def test_corridor_product_rounds_as_the_reference():
+    """The corridor product is two rounded products and one rounded add,
+    as the reference's dot rounds it at the tracker's corridor count (8)
+    on a full raster.  Constructed: a pixel whose ``fma(y, s, x*c)`` (what
+    ``torch.matmul`` computes on the CPU) lies one ulp below that, with the
+    corridor's lower bound at the reference's value: the reference and the
+    port keep the pixel, the matmul form drops it."""
+    H, W = 120, 160
+    jj, ii = np.meshgrid(np.arange(W), np.arange(H))
+    xy = np.stack([jj.ravel(), ii.ravel()], 1).astype(np.float32)
+    th = np.random.default_rng(5).uniform(0.0, math.pi, 8)
+    cor = np.stack([np.cos(th), np.sin(th), np.full(8, -1e6),
+                    np.full(8, -1e6)], 1).astype(np.float32)
+    rho_ref = np.asarray(jnp.asarray(xy) @ jnp.asarray(cor[:, :2]).T)
+    rho_mm = (_t(xy) @ _t(cor[:, :2]).T).numpy()
+    p, c = np.argwhere(rho_mm < rho_ref)[0]
+    # the pixel's products: the reference rounds each, then adds
+    x, y = xy[p]
+    assert rho_ref[p, c] == np.float32(x * cor[c, 0]) + np.float32(y * cor[c, 1])
+    cor[c, 2:] = rho_ref[p, c], rho_ref[p, c] + 10.0
+    want = np.asarray(jref.corridor_keep(jnp.asarray(xy), jnp.asarray(cor)))
+    got = ref.corridor_keep(_t(xy), _t(cor)).numpy()
+    assert want[p] and got[p]
+    np.testing.assert_array_equal(got, want)
+    old = ((rho_mm >= cor[:, 2]) & (rho_mm <= cor[:, 3])).any(-1)
+    assert not old[p]
+
+
+def test_reference_corridor_rounding_depends_on_the_corridor_count():
+    """The reference's own corridor product rounds by shape: on the
+    720x1280 raster its dot equals the two-product form at 4 and 8
+    corridors and ``torch.matmul``'s ``fma(y, s, x*c)`` at 1, 2 and 16.
+    The port takes the two-product form of the tracker's 8 corridors."""
+    H, W = 720, 1280
+    jj, ii = np.meshgrid(np.arange(W), np.arange(H))
+    xy = np.stack([jj.ravel(), ii.ravel()], 1).astype(np.float32)
+    got = {}
+    for C in (1, 2, 4, 8, 16):
+        th = np.random.default_rng(5).uniform(0.0, math.pi, C)
+        cs = _t(np.stack([np.cos(th), np.sin(th)], 1).astype(np.float32))
+        want = np.asarray(jnp.asarray(xy) @ jnp.asarray(cs.numpy()).T)
+        t = _t(xy)
+        two_products = (t[:, 0:1] * cs[:, 0] + t[:, 1:2] * cs[:, 1]).numpy()
+        fma = (t @ cs.T).numpy()
+        got[C] = (int((want != two_products).sum()), int((want != fma).sum()))
+    assert got == {1: (253160, 0), 2: (499993, 0), 4: (0, 948101),
+                   8: (0, 1409840), 16: (2655189, 0)}
+
+
 def test_cpu_dispatch_launches_no_kernel(rng):
     ops.reset_launch_counts()
     xy, w, trig = _vote_inputs(rng, 64, 8, 30, batch=2)
     ops.hough_vote(_t(xy), _t(w), _t(trig), n_rho=30, compact=True)
     ops.conv2d_gemm(_t(rng.normal(size=(9, 9)).astype(np.float32)),
                     torch.ones(1, 3, 3))
-    assert ops.launch_counts() == {"conv2d_gemm": 0, "hough_vote": 0}
+    assert ops.launch_counts() == {"conv2d_gemm": 0, "fused_detect": 0,
+                                   "hough_vote": 0}

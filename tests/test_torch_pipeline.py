@@ -28,7 +28,7 @@ from repro.data import scenario_batch, scenario_names  # noqa: E402
 from repro_torch.configs.paper_lines import PLATFORMS  # noqa: E402
 from repro_torch.convert import pipeline_config_from_reference  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    HoughConfig, LineDetector, PipelineConfig, PhaseProfiler,
+    HoughConfig, LineDetector, PipelineConfig, PhaseProfiler, full_corridors,
 )
 from repro_torch.core import metrics as tmetrics  # noqa: E402
 from repro_torch.core.plan import DetectionPlan  # noqa: E402
@@ -90,10 +90,10 @@ def test_platforms_round_trip():
     for name, jcfg in JPLATFORMS.items():
         d = dataclasses.asdict(jcfg)
         cfg = pipeline_config_from_reference(d)
-        # the port's HoughConfig has no kernel mode and no fused-path field
+        # the port's HoughConfig has no kernel mode
         want = {**d, "hough": dict(d["hough"])}
         assert want["hough"].pop("impl") is None, name
-        assert want["hough"].pop("corridors") is None, name
+        assert want["hough"]["corridors"] is None, name
         assert dataclasses.asdict(cfg) == want, name
         assert cfg == PLATFORMS[name], name
 
@@ -104,22 +104,31 @@ def test_conversion_maps_kernel_modes_and_rejects_unknown_fields():
     d["hough"]["impl"] = "pallas"
     assert pipeline_config_from_reference(d).canny.impl is None
     d["hough"]["corridors"] = 2
-    with pytest.raises(NotImplementedError, match="corridors"):
-        pipeline_config_from_reference(d)
+    assert pipeline_config_from_reference(d).hough.corridors == 2
     d["hough"]["corridors"] = None
     d["canny"]["shiny"] = True
     with pytest.raises(TypeError):
         pipeline_config_from_reference(d)
 
 
-def test_fused_path_not_ported_yet():
+def test_fused_path_not_ported_yet(frames):
+    """The fused path converts, plans and runs: a fused reference config
+    maps to the port's, whose plan at full corridor coverage gives the
+    staged plan's peaks; a staged config has no fused twin without
+    compaction."""
     d = dataclasses.asdict(JPipeline(hough=JHough(compact=True)))
     d["fused"] = True
-    with pytest.raises(NotImplementedError, match="fused"):
-        pipeline_config_from_reference(d)
-    plan = DetectionPlan.build(PipelineConfig(), H, W)
-    with pytest.raises(NotImplementedError):
-        plan.with_fused(2)
+    cfg = pipeline_config_from_reference(d)
+    assert cfg.fused and cfg.hough.compact
+    imgs, _ = frames
+    staged = DetectionPlan.build(dataclasses.replace(cfg, fused=False), H, W)
+    fused = staged.with_fused(2)
+    got = fused.run(torch.from_numpy(imgs[1]), corridors=full_corridors(2))
+    want = staged.run(torch.from_numpy(imgs[1]))
+    np.testing.assert_array_equal(got.peaks.numpy(), want.peaks.numpy())
+    assert not got.edges.any()
+    with pytest.raises(ValueError, match="compact"):
+        DetectionPlan.build(PipelineConfig(), H, W).with_fused(2)
 
 
 def test_device_rule_raises_without_cuda(monkeypatch):
