@@ -46,21 +46,25 @@ sys.path.insert(0, str(ROOT / "src"))
 DEPLOY_BATCH = 8
 MAIN_FAMILIES = ("straight", "converging", "dashed", "curved", "night",
                  "glare", "rain", "multilane")
-# Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores.
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s,
+# f32 FLOP/s outside the tensor cores, and the dense tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the given rate (f32 unless named), whichever is
+    larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -74,6 +78,461 @@ def tracker_corridors(truth, n: int, half: float = 25.0):
             for rho, th in truth]
     rows += [rows[0]] * (n - len(rows))
     return np.asarray(rows, np.float32)
+
+
+def gpu_trace(run, name: str, n_runs: int):
+    """Profile ``run`` called ``n_runs`` times (torch.profiler, CPU and
+    CUDA activities); every GPU activity of the trace summed by name, the
+    busy time and the span from the first activity to the last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_runs):
+            run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    trace_path = ROOT / "build" / f"trace_{name}.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    gpu = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+           if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    by_name: dict[str, list[float]] = {}
+    for e in gpu:
+        by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    busy_ms = sum(sum(v) for v in by_name.values())
+    span_ms = ((max(e["ts"] + e["dur"] for e in gpu)
+                - min(e["ts"] for e in gpu)) / 1e3) if gpu else 0.0
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    return {"gpu_activities": len(gpu), "device_busy_ms": busy_ms,
+            "device_span_ms": span_ms,
+            "device_busy_share_of_span": busy_ms / span_ms if span_ms else None,
+            "traced_wall_ms": wall_ms,
+            "top": [{"name": k[:90], "calls": len(v), "ms": sum(v)}
+                    for k, v in top],
+            "trace": str(trace_path.relative_to(ROOT)), "runs": n_runs}
+
+
+# The slice's serving traffic: 8 greedy requests of these prompt lengths,
+# 32 new tokens each, through 4 slots of 1152 positions.
+SERVE_PROMPTS = (97, 128, 200, 255, 384, 513, 777, 1000)
+SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 4, 1152
+
+
+def lm_phases(cuda_ms) -> list:
+    """The LM serving slice: zamba2-1.2b through the continuous-batching
+    Engine, both LM kernels against their plain versions on the card, a
+    full-width f32 run held against the port's CPU run, the full model in
+    bf16 with its launches read per prefill and per decode step, and the
+    kernels' times beside their bounds.  Returns the two kernels' entries
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as attn_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, Request
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                * scale).to(dev, dtype)
+
+    # --- lm_kernels_vs_plain ---------------------------------------------
+    # bf16 attention: both round an f32 value once, so one bf16 ulp apart,
+    # plus the f32 values' own difference (1e-5 of max|v|, the summation
+    # order), which shows only where an output cancels to near 0.  f32
+    # attention: 1e-5.  SSD (f32): 1e-4 relative to the chunked plain
+    # version at the same chunk, 2e-3 to the sequential oracle
+    # (tests/test_kernels.py).
+    checks = []
+    attn_cases = [((1, 32, 32, L, L, 64), True, None, 0, torch.bfloat16)
+                  for L in (127, 513, 1000)]
+    attn_cases += [((1, 32, 8, 300, 700, 80), True, 256, 400, torch.bfloat16),
+                   ((2, 4, 2, 100, 100, 64), True, 24, 0, torch.float32),
+                   ((1, 4, 4, 37, 37, 16), False, None, 0, torch.float32),
+                   ((1, 4, 1, 3, 200, 128), True, None, 197, torch.float32)]
+    attn_err = 0.0
+    for (B, Hq, Hkv, Lq, Lkv, D), causal, window, off, dt in attn_cases:
+        q, k, v = (randn(B, h, L, D, dtype=dt)
+                   for h, L in ((Hq, Lq), (Hkv, Lkv), (Hkv, Lkv)))
+        got = attn_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=off)
+        torch.cuda.synchronize()
+        want = ref.attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        if dt == torch.bfloat16:
+            mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            tol = ulp + 1e-5 * float(v.float().abs().max())
+            ok = bool(((g - w).abs() <= tol).all())
+            beyond_ulp = int(((g - w).abs() > ulp).sum())
+            rule = "1 bf16 ulp + 1e-5*max|v|"
+        else:
+            ok = bool(torch.allclose(g, w, rtol=1e-5, atol=1e-5))
+            beyond_ulp = None
+            rule = "rtol=atol=1e-5"
+        attn_err = max(attn_err, err)
+        checks.append({"kernel": "flash_attention",
+                       "shape": [B, Hq, Hkv, Lq, Lkv, D], "causal": causal,
+                       "window": window, "q_offset": off,
+                       "dtype": str(dt).removeprefix("torch."),
+                       "max_abs_err": err, "elements_beyond_1_ulp": beyond_ulp,
+                       "tol": rule, "ok": ok})
+    ssd_cases = [(1, L, 64, 64, 64, 1) for L in (97, 128, 1000)]
+    ssd_cases += [(2, 1, 4, 16, 8, 2), (2, 80, 4, 16, 8, 2)]
+    ssd_err = 0.0
+    for b, L, H, P, N, G in ssd_cases:
+        x = randn(b, L, H, P, scale=0.1)
+        dt_ = torch.from_numpy(rng.uniform(0.01, 0.1, (b, L, H))
+                               .astype(np.float32)).to(dev)
+        A = torch.from_numpy(-rng.uniform(0.5, 1.5, (H,))
+                             .astype(np.float32)).to(dev)
+        Bm, C = randn(b, L, G, N), randn(b, L, G, N)
+        y, h = ssd_mod.ssd_scan(x, dt_, A, Bm, C)
+        torch.cuda.synchronize()
+        yc, hc = ref.ssd_scan_chunked(x, dt_, A, Bm, C)
+        ys, hs = ref.ssd_scan(x, dt_, A, Bm, C)
+        rel_c = max(float((y - yc).abs().max() / yc.abs().max()),
+                    float((h - hc).abs().max() / hc.abs().max()))
+        err = max(float((y - yc).abs().max()), float((h - hc).abs().max()))
+        ok = (rel_c <= 1e-4 and torch.allclose(y, ys, rtol=2e-3, atol=2e-3)
+              and torch.allclose(h, hs, rtol=2e-3, atol=2e-3))
+        ssd_err = max(ssd_err, err)
+        checks.append({"kernel": "ssd_scan", "shape": [b, L, H, P, N, G],
+                       "chunk": min(128, L), "max_abs_err": err,
+                       "max_rel_err_vs_chunked_plain": rel_c,
+                       "max_abs_err_vs_sequential": max(
+                           float((y - ys).abs().max()),
+                           float((h - hs).abs().max())),
+                       "tol": "1e-4 rel vs chunked, 2e-3 vs sequential",
+                       "ok": bool(ok)})
+    emit({"phase": "lm_kernels_vs_plain", "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"LM kernel checks failed: {bad}")
+
+    # --- serve_cpu_anchor: full width, 8 layers, f32, TF32 off ------------
+    t_anchor = time.perf_counter()
+    cfg8 = get("zamba2-1.2b").replace(n_layers=8, compute_dtype="float32")
+    cpu_model, gpu_model = build(cfg8, device="cpu"), build(cfg8)
+    params8 = cpu_model.init(torch.Generator().manual_seed(0))
+    arng = np.random.default_rng(1)
+    prompts8 = [[int(t) for t in arng.integers(1, cfg8.vocab, n)]
+                for n in (9, 17, 24, 33)]
+
+    def serve8(model, params, device):
+        eng = Engine(model, params, n_slots=2, max_len=64, device=device)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=4)
+                for i, p in enumerate(prompts8)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        return [r.output for r in reqs]
+
+    out_card = serve8(gpu_model, params8, None)
+    out_cpu = serve8(cpu_model, params8, "cpu")
+    worst = 0.0
+    for prompt, toks, toks_cpu in zip(prompts8, out_card, out_cpu):
+        if toks == toks_cpu:
+            continue        # each card token is the CPU's own largest logit
+        # teacher-forced on the CPU: each token the card emitted must have
+        # a CPU logit within tau = 1e-3 * max|logit| of the CPU's largest
+        cache = cpu_model.init_cache(1, 64)
+        cpu_model.prefill(params8, {"tokens": torch.tensor([prompt[:-1]])},
+                          cache)
+        tok = prompt[-1]
+        for i, e in enumerate(toks):
+            lg, cache = cpu_model.decode_step(
+                params8, torch.tensor([tok]), cache,
+                torch.tensor([len(prompt) - 1 + i]))
+            gap = float(lg[0].max() - lg[0, e]) / float(lg[0].abs().max())
+            worst = max(worst, gap)
+            tok = e
+    anchor_s = time.perf_counter() - t_anchor
+    anchor_ok = worst <= 1e-3
+    emit({"phase": "serve_cpu_anchor", "config": "zamba2-1.2b, n_layers=8 "
+          "(one superblock of 6 and the tail, 10 Mamba-2 layers as the "
+          "reference stacks it), f32 compute, TF32 off",
+          "prompt_lengths": [len(p) for p in prompts8], "new_tokens": 4,
+          "tokens_card": out_card, "tokens_cpu": out_cpu,
+          "requests_equal": [a == b for a, b in zip(out_card, out_cpu)],
+          "worst_gap_of_card_token_rel_max_logit": worst, "tau": 1e-3,
+          "seconds": anchor_s, "ok": anchor_ok})
+    del params8, cpu_model, gpu_model
+    if not anchor_ok:
+        raise SystemExit(f"full-width f32 serving: a card token is {worst} "
+                         "of the largest logit below the CPU's best")
+
+    # --- serve: zamba2-1.2b at full width and depth ------------------------
+    class Probe:
+        """The model, with the launch counts zeroed just before each
+        prefill and decode step and read just after (host clock to
+        synchronize around each), and each active slot's decode logits."""
+
+        def __init__(self, m):
+            self.m, self.engine = m, None
+            self.prefills, self.decodes, self.logits = [], [], {}
+
+        def __getattr__(self, name):
+            return getattr(self.m, name)
+
+        def _timed(self, fn):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+        def prefill(self, params, batch, cache, *, positions=None):
+            out, ms, counts = self._timed(lambda: self.m.prefill(
+                params, batch, cache, positions=positions))
+            self.prefills.append({
+                "tokens": int(batch["tokens"].shape[1]), "ms": ms,
+                "launches": counts,
+                "finite": bool(torch.isfinite(out[0]).all())})
+            return out
+
+        def decode_step(self, params, token, cache, pos, *, ring=False):
+            active = [(i, r) for i, r in enumerate(self.engine.slots) if r]
+            out, ms, counts = self._timed(lambda: self.m.decode_step(
+                params, token, cache, pos, ring=ring))
+            lg = out[0]
+            self.decodes.append({
+                "active": len(active), "ms": ms, "launches": counts,
+                "finite": bool(torch.isfinite(lg[[i for i, _ in active]])
+                               .all())})
+            for i, r in active:
+                self.logits[(r.uid, len(r.output))] = lg[i].float().cpu()
+            return out
+
+    def serve_traffic(model, params, prompts, new_tokens):
+        """One Engine run of the traffic through the probe."""
+        probe = Probe(model)
+        eng = Engine(probe, params, n_slots=SERVE_SLOTS,
+                     max_len=SERVE_MAX_LEN, device="cuda")
+        probe.engine = eng
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=new_tokens)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return probe, eng, reqs, time.perf_counter() - t0
+
+    def teacher_forced(model, params, probe, reqs):
+        """Each request's decode-path logits (its first, middle and last
+        step) against a fresh prefill of the same tokens on the card: the
+        largest difference and the largest |logit|."""
+        err = scale = 0.0
+        for r in reqs:
+            seq = r.prompt + r.output
+            for k in (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1):
+                n = len(r.prompt) + k
+                lg, _ = model.prefill(
+                    params, {"tokens": torch.tensor([seq[:n]], device=dev)},
+                    model.init_cache(1, SERVE_MAX_LEN))
+                want = lg[0].float().cpu()
+                err = max(err, float((want - probe.logits[(r.uid, k)])
+                                     .abs().max()))
+                scale = max(scale, float(want.abs().max()))
+        return err, scale
+
+    def launch_faults(probe, per_prefill):
+        """Prefills whose launches differ from ``per_prefill`` (every other
+        kernel 0), and decode steps that launched any kernel."""
+        bad_p = [c for c in probe.prefills
+                 if c["launches"] != {**{k: 0 for k in c["launches"]},
+                                      **per_prefill}]
+        return bad_p, [c for c in probe.decodes if any(c["launches"].values())]
+
+    from repro_torch.models.transformer import pattern_for
+
+    cfg = get("zamba2-1.2b")
+    pattern, n_super, tail, n_tail = pattern_for(cfg)
+    # The reference stacks its tail pattern of `tail` layers `tail` times,
+    # so zamba2's 38 configured layers run as 6 x 6 + 2 x 2 = 40 Mamba-2
+    # layers (ROADMAP.md, faults); one shared-block application a
+    # superblock.
+    n_mamba = n_super * pattern.count("mamba2") + n_tail * tail.count("mamba2")
+    per_prefill = {"flash_attention": n_super, "ssd_scan": n_mamba}
+    srng = np.random.default_rng(0)
+    prompts = [[int(t) for t in srng.integers(1, cfg.vocab, n)]
+               for n in SERVE_PROMPTS]
+
+    # bf16, the deployment: times, launches, finite logits
+    model = build(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    serve_traffic(model, params, prompts[:2], 2)   # warm-up
+    probe, eng, reqs, run_s = serve_traffic(model, params, prompts, SERVE_NEW)
+    done = all(r.done and len(r.output) == SERVE_NEW for r in reqs)
+    finite = all(c["finite"] for c in probe.prefills + probe.decodes)
+    bad_prefill, bad_decode = launch_faults(probe, per_prefill)
+    tf_bf16, scale_bf16 = teacher_forced(model, params, probe, reqs)
+    n_tok = sum(len(r.output) for r in reqs)
+    full = [c["ms"] for c in probe.decodes if c["active"] == SERVE_SLOTS]
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for c in probe.prefills + probe.decodes:
+        for name in launches:
+            launches[name] += c["launches"][name]
+    # one prefill (the 1000-token prompt) and one decode step with every
+    # slot active, profiled
+    runs = {}
+    long_prompt = prompts[-1][:-1]
+    runs["prefill_999"] = gpu_trace(lambda: model.prefill(
+        params, {"tokens": torch.tensor([long_prompt], device=dev)},
+        model.init_cache(1, SERVE_MAX_LEN)), "zamba2_prefill", 1)
+    pos = torch.tensor([300, 500, 700, 1000], device=dev)
+    tok = torch.tensor([1, 2, 3, 4], device=dev)
+    runs["decode_step_4_slots"] = gpu_trace(lambda: model.decode_step(
+        params, tok, eng.cache, pos), "zamba2_decode", 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, eng
+
+    # f32 compute, the same traffic: the decode path against teacher-forced
+    # prefills.  In bf16 the two paths round differently (decode rounds p
+    # to bf16, as the reference does; the GEMMs of 1 and of L rows sum in
+    # other orders) and a 40-layer random model amplifies the difference
+    # with depth, so the 5e-2 of tests/test_models.py is held at f32, where
+    # it tests the engine (cache, slots, state) and not the rounding; the
+    # bf16 gap is reported beside it.
+    model32 = build(cfg.replace(compute_dtype="float32"))
+    params32 = model32.init(torch.Generator(dev).manual_seed(0))
+    probe32, _, reqs32, run32_s = serve_traffic(model32, params32, prompts,
+                                                SERVE_NEW)
+    done32 = all(r.done and len(r.output) == SERVE_NEW for r in reqs32)
+    bad_p32, bad_d32 = launch_faults(probe32, per_prefill)
+    tf_f32, scale_f32 = teacher_forced(model32, params32, probe32, reqs32)
+    del params32
+    serve_ok = (done and finite and not bad_prefill and not bad_decode
+                and done32 and not bad_p32 and not bad_d32
+                and tf_f32 <= 5e-2)
+    emit({"phase": "serve", "model": "zamba2-1.2b",
+          "configured_layers": cfg.n_layers, "mamba2_layers_run": n_mamba,
+          "shared_block_applications": n_super, "d_model": cfg.d_model,
+          "compute_dtype": cfg.compute_dtype,
+          "params": model.param_count(), "n_slots": SERVE_SLOTS,
+          "max_len": SERVE_MAX_LEN, "prompt_lengths": list(SERVE_PROMPTS),
+          "new_tokens": SERVE_NEW, "requests_done": sum(r.done for r in reqs),
+          "all_logits_finite": finite,
+          "prefill_ms_by_prompt_length": {
+              str(c["tokens"] + 1): c["ms"] for c in probe.prefills},
+          "expected_launches_per_prefill": per_prefill,
+          "launches_per_prefill": [
+              {k: c["launches"][k] for k in launches}
+              for c in probe.prefills],
+          "decode_steps": len(probe.decodes),
+          "decode_steps_launching_a_kernel": len(bad_decode),
+          "launches_in_run": launches,
+          "decode_step_ms_4_slots_median": (float(np.median(full))
+                                            if full else None),
+          "decode_step_ms_4_slots_min": min(full) if full else None,
+          "decode_steps_4_slots": len(full),
+          "engine_run_seconds": run_s, "tokens_generated": n_tok,
+          "tokens_per_s": n_tok / run_s,
+          "teacher_forced_bf16_max_abs_err": tf_bf16,
+          "teacher_forced_bf16_max_abs_logit": scale_bf16,
+          "f32_run": {"requests_done": sum(r.done for r in reqs32),
+                      "engine_run_seconds": run32_s,
+                      "prefills_with_wrong_launches": len(bad_p32),
+                      "decode_steps_launching_a_kernel": len(bad_d32),
+                      "teacher_forced_max_abs_err": tf_f32,
+                      "teacher_forced_max_abs_logit": scale_f32,
+                      "bound": 5e-2},
+          "profiled": runs, "peak_memory_gb": peak_gb, "ok": serve_ok})
+    if not serve_ok:
+        raise SystemExit(
+            f"serving slice failed: done={done}/{done32} finite={finite} "
+            f"prefill launches {bad_prefill[:2]} {bad_p32[:2]} decode "
+            f"launches {bad_decode[:2]} {bad_d32[:2]} f32 teacher-forced "
+            f"err {tf_f32}")
+
+    # --- lm_times: each kernel per launch at the serving shapes ----------
+    # Attention: the shared block's prefill, (1, 32, L, 64) bf16, L = each
+    # serving prompt length - 1; bound: q, k, v read and out written once,
+    # against 4 * D FLOP for each unmasked (q, k) pair at the bf16 tensor-
+    # core rate.  SSD: a Mamba-2 prefill, H = P = N = 64, G = 1, f32 (the
+    # reference casts its inputs so); bound: x, dt, A, B, C read and y and
+    # the state written once, against the chunks' products (lower
+    # triangles only, each chunk's real rows) at the f32 rate, with the
+    # TF32 rate beside it.
+    attn_rows, ssd_rows = [], []
+    for n in SERVE_PROMPTS:
+        L = n - 1
+        q, k, v = (randn(1, 32, L, 64, dtype=torch.bfloat16)
+                   for _ in range(3))
+        pairs = L * (L + 1) // 2
+        b_ms, b_by = bound_ms(4 * 32 * L * 64 * 2, 32 * pairs * 4.0 * 64,
+                              BF16_FLOPS_PER_S)
+        attn_rows.append({
+            "L": L, "ms": cuda_ms(lambda: attn_mod.flash_attention(
+                q, k, v, causal=True)),
+            "plain_ms": cuda_ms(lambda: ref.attention(q, k, v, causal=True),
+                                reps=5),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        H = P = N = 64
+        x = randn(1, L, H, P, scale=0.1)
+        dt_ = torch.full((1, L, H), 0.05, device=dev)
+        A = -torch.ones(H, device=dev)
+        Bm, C = randn(1, L, 1, N), randn(1, L, 1, N)
+        flops = 0.0
+        for c0 in range(0, L, 128):
+            r = min(128, L - c0)
+            flops += H * (r * (r + 1) * (N + P) + 4.0 * r * N * P)
+        flops += L * H * P                            # x * dt
+        n_bytes = 4 * (2 * L * H * P + L * H + H + 2 * L * N + H * N * P)
+        s_ms, s_by = bound_ms(n_bytes, flops)
+        ssd_rows.append({
+            "L": L, "ms": cuda_ms(lambda: ssd_mod.ssd_scan(x, dt_, A, Bm, C)),
+            "plain_ms": cuda_ms(lambda: ref.ssd_scan_chunked(
+                x, dt_, A, Bm, C), reps=5),
+            "library_ms": None, "bound_ms": s_ms, "bound_by": s_by,
+            "bound_ms_at_tf32_rate": bound_ms(n_bytes, flops,
+                                              TF32_FLOPS_PER_S)[0]})
+
+    def mean_row(rows):
+        keys = ("ms", "plain_ms", "bound_ms")
+        out = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+        lib = [r["library_ms"] for r in rows]
+        out["library_ms"] = None if None in lib else sum(lib) / len(lib)
+        out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                          for r in rows) else "operations")
+        return out
+
+    attn_mean, ssd_mean = mean_row(attn_rows), mean_row(ssd_rows)
+    emit({"phase": "lm_times", "note": "ms per launch; the means are over "
+          "the 8 serving prefill lengths, each launched 6 (attention) or 40 "
+          "(SSD) times a prefill; no PyTorch call computes the SSD scan",
+          "flash_attention": {"by_length": attn_rows, "mean": attn_mean},
+          "ssd_scan": {"by_length": ssd_rows, "mean": ssd_mean}})
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:97",
+         "path": "zamba2_serve", "launches": launches["flash_attention"],
+         "max_abs_err": attn_err, **attn_mean},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:72",
+         "path": "zamba2_serve", "launches": launches["ssd_scan"],
+         "max_abs_err": ssd_err, **ssd_mean},
+    ]
 
 
 def main() -> int:
@@ -453,8 +912,11 @@ def main() -> int:
         raise SystemExit("detect_stream disagrees with detect_batch")
 
     # --- 6. each main path went through its kernels -----------------------
-    staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1}
-    fused_call = {"conv2d_gemm": 0, "fused_detect": 1, "hough_vote": 1}
+    no_lm = {"flash_attention": 0, "ssd_scan": 0}
+    staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1,
+                   **no_lm}
+    fused_call = {"conv2d_gemm": 0, "fused_detect": 1, "hough_vote": 1,
+                  **no_lm}
     expected = {"boom": staged_call, "boom+gemmini": staged_call,
                 "fused_detector": fused_call}
     wrong = {p: c for p, c in launches.items() if c != expected[p]}
@@ -635,8 +1097,6 @@ def main() -> int:
     # "boom": stage times on the stream by CUDA events (gaps where the card
     # waits for the host's launches included); then, for "boom" and the
     # fused detector, one profiled window each.
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.hough import hough_transform_tiered
     from repro_torch.core.lines import get_lines
 
@@ -655,36 +1115,20 @@ def main() -> int:
         """One profiled window of three batches: every GPU activity of the
         trace, summed by name."""
         n_traced = 3
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_traced):
-                det.detect_batch(frames_dev)
-            torch.cuda.synchronize()
-        traced_wall_ms = (time.perf_counter() - t0) * 1e3
-        trace_path = ROOT / "build" / f"trace_{name}.json"
-        trace_path.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(trace_path))
-        gpu = [e for e in json.loads(trace_path.read_text())["traceEvents"]
-               if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
-        by_name: dict[str, list[float]] = {}
-        for e in gpu:
-            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
-        busy_ms = sum(sum(v) for v in by_name.values())
-        span_ms = ((max(e["ts"] + e["dur"] for e in gpu)
-                    - min(e["ts"] for e in gpu)) / 1e3) if gpu else 0.0
-        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+        t = gpu_trace(lambda: det.detect_batch(frames_dev), name, n_traced)
         emit({"phase": "where_the_time_goes", "config": config, **extra,
-              "traced_batches": n_traced, "gpu_activities": len(gpu),
-              "gpu_activities_per_batch": len(gpu) / n_traced,
-              "device_busy_ms_per_batch": busy_ms / n_traced,
-              "device_span_ms_per_batch": span_ms / n_traced,
-              "device_busy_share_of_span": (busy_ms / span_ms if span_ms
-                                            else None),
-              "traced_wall_ms_per_batch": traced_wall_ms / n_traced,
-              "top": [{"name": k[:90], "calls_per_batch": len(v) / n_traced,
-                       "ms_per_batch": sum(v) / n_traced} for k, v in top],
-              "trace": str(trace_path.relative_to(ROOT))})
+              "traced_batches": n_traced,
+              "gpu_activities": t["gpu_activities"],
+              "gpu_activities_per_batch": t["gpu_activities"] / n_traced,
+              "device_busy_ms_per_batch": t["device_busy_ms"] / n_traced,
+              "device_span_ms_per_batch": t["device_span_ms"] / n_traced,
+              "device_busy_share_of_span": t["device_busy_share_of_span"],
+              "traced_wall_ms_per_batch": t["traced_wall_ms"] / n_traced,
+              "top": [{"name": e["name"],
+                       "calls_per_batch": e["calls"] / n_traced,
+                       "ms_per_batch": e["ms"] / n_traced}
+                      for e in t["top"]],
+              "trace": t["trace"]})
 
     profiled(det_boom, "boom, auto compact", "main_path",
              {"stage_ms": stage_ms})
@@ -740,6 +1184,7 @@ def main() -> int:
                 "frames": tp_card.fused_frames,
                 **{k: fused_times["tracking_frame"][k] for k in keys}},
         }})
+    kernels += lm_phases(cuda_ms)
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,13 +1,24 @@
-"""Configurations of the reference package, as the port's.
+"""Configurations and parameters of the reference package, as the port's.
 
 The reference detector has no learned weights: its parameters are its
 frozen configs (and the mask constants, which both packages compute the
 same way).  ``pipeline_config_from_reference`` takes
 ``dataclasses.asdict`` of a ``repro`` ``PipelineConfig`` (plain dicts, so
 this module never imports the reference) and builds the port's config.
+
+For the LM stack, ``model_config_from_reference`` does the same for a
+``ModelConfig``, and ``lm_params_from_reference`` takes the reference's
+parameter pytree as numpy arrays.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.models import layers
+from repro_torch.models.transformer import param_specs
 
 from repro_torch.core.canny import CannyConfig
 from repro_torch.core.hough import HoughConfig
@@ -45,3 +56,37 @@ def pipeline_config_from_reference(d: dict) -> PipelineConfig:
         lines=LinesConfig(**d.pop("lines")),
         **d,
     )
+
+
+def model_config_from_reference(d: dict) -> ModelConfig:
+    """The port's ``ModelConfig`` for ``dataclasses.asdict(reference)``
+    (unknown fields raise, as above; so does an MoE config, not ported)."""
+    d = dict(d)
+    if d.get("moe") is not None:
+        raise NotImplementedError("MoE configs are not ported (ROADMAP.md)")
+    if d.get("ssm") is not None:
+        d["ssm"] = SSMConfig(**d["ssm"])
+    return ModelConfig(**d)
+
+
+def lm_params_from_reference(cfg: ModelConfig, params) -> dict:
+    """The reference's LM parameters (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's, on the CPU.
+
+    The port keeps the reference's layout, stacked ``blocks``/``tail``
+    leaves included (layer ``i`` is the view ``leaf[i]``), so each leaf is
+    carried across as it is; the tree must match ``param_specs(cfg)`` key
+    for key and shape for shape, or this raises.
+    """
+    specs = dict(layers.tree_items(param_specs(cfg)))
+    given = dict(layers.tree_items(params))
+    if specs.keys() != given.keys():
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(specs.keys() - given)}"
+            f", unexpected {sorted(given.keys() - specs)}")
+    for path, spec in specs.items():
+        if tuple(np.shape(given[path])) != tuple(spec.shape):
+            raise ValueError(f"{'/'.join(path)}: shape "
+                             f"{np.shape(given[path])} != {spec.shape}")
+    return layers.tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)), params)

@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("conv2d", "hough_vote", "fused_detect")
+SOURCES = ("conv2d", "hough_vote", "fused_detect", "flash_attention",
+           "ssd_scan")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

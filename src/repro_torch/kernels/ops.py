@@ -11,6 +11,12 @@ Each kernel module keeps a plain integer count of its launches; read them
 with :func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 ``fused_weights`` and ``compact_raster`` (jnp outside any ``pallas_call``
 in the reference) are torch ops on either device.
+
+The LM seams, ``flash_attention`` and ``ssd_scan``, keep the reference's
+CPU dispatch (``repro/kernels/ops.py``) so that both packages take the same
+arithmetic on the host: dense attention up to a kv length of 2048 and the
+blockwise form above; the sequential SSD oracle up to L = 64 and the
+chunked form (``chunk``, default 128) above.
 """
 
 from __future__ import annotations
@@ -18,9 +24,11 @@ from __future__ import annotations
 import torch
 
 from . import conv2d_gemm as _conv
+from . import flash_attention as _attn
 from . import fused_detect as _fused
 from . import hough_vote as _vote
 from . import ref
+from . import ssd_scan as _ssd
 from .hough_vote import compact_edges  # noqa: F401  (re-exported)
 
 
@@ -33,15 +41,18 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+_KERNEL_MODULES = {"conv2d_gemm": _conv, "fused_detect": _fused,
+                   "hough_vote": _vote, "flash_attention": _attn,
+                   "ssd_scan": _ssd}
+
+
 def launch_counts() -> dict[str, int]:
-    return {"conv2d_gemm": _conv.launches, "fused_detect": _fused.launches,
-            "hough_vote": _vote.launches}
+    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _conv.launches = 0
-    _fused.launches = 0
-    _vote.launches = 0
+    for mod in _KERNEL_MODULES.values():
+        mod.launches = 0
 
 
 def conv2d_gemm(image: torch.Tensor, masks: torch.Tensor, *,
@@ -143,3 +154,38 @@ def hough_vote(xy, weights, trig, *, n_rho: int, compact: bool = False,
                            dtype=votes.dtype, device=votes.device)
         votes = full.index_copy_(-1, theta_bins, votes)
     return votes
+
+
+# Above this kv length the CPU takes the blockwise form (the same function,
+# O(Lq * block) memory), as the reference's host dispatch does.
+_DENSE_MAX_KV = 2048
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offset: int = 0):
+    """Attention over (B, Hq, Lq, D) queries and (B, Hkv, Lkv, D) keys and
+    values: causal and window masks in global positions ``q_offset + i``,
+    GQA for Hq % Hkv == 0; out in q's dtype."""
+    if _on_card(q):
+        return _attn.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if k.shape[2] > _DENSE_MAX_KV:
+        return ref.attention_blockwise(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    return ref.attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+# Above this sequence length the CPU takes the chunked SSD form instead of
+# the L-step sequential oracle, as the reference's host dispatch does.
+_SSD_SEQ_MAX = 64
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """Mamba-2 SSD scan: x (b, L, H, P), dt (b, L, H), A (H,), B/C
+    (b, L, G, N) -> (y (b, L, H, P), final state (b, H, N, P) f32)."""
+    if _on_card(x):
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    if x.shape[1] > _SSD_SEQ_MAX:
+        return ref.ssd_scan_chunked(x, dt, A, B, C, chunk=chunk)
+    return ref.ssd_scan(x, dt, A, B, C)

@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the detection kernels (``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the kernels (``repro/kernels/ref.py``).
 
 These are the semantics of record for the hand kernels in ``csrc/``: the
 CPU runs them (``ops`` dispatches a CPU tensor here), and ``chip_smoke.py``
 and the tests hold each kernel against them on the card.  Each one repeats
-the reference's arithmetic, not its speed.
+the reference's arithmetic, not its speed.  The detection half comes
+first; the LM half (attention and the Mamba-2 SSD scan) is at the end.
 
 Run on the card, the matmul-based versions need TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``), or rho bins move.
+(``torch.backends.cuda.matmul.allow_tf32 = False``), or rho bins move and
+attention and SSD sums lose their f32 precision.
 """
 
 from __future__ import annotations
@@ -276,3 +278,156 @@ def fused_detect(image: torch.Tensor, *, cfg, edge_threshold: float,
     w = fused_weights(image, cfg=cfg, edge_threshold=edge_threshold,
                       corridors=corridors)
     return compact_raster(w, width=image.shape[-1], max_edges=max_edges)
+
+
+# --- the LM half ---------------------------------------------------------
+
+
+def _attention_mask(q_pos, kv_pos, kv_len, causal, window):
+    mask = kv_pos[None, :] < kv_len
+    if causal:
+        mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+    if window is not None:
+        mask = mask & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    return mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Dense softmax attention oracle (GQA by repeating kv heads).
+
+    q (B, Hq, Lq, D); k, v (B, Hkv, Lkv, D), Hq % Hkv == 0.  Scores and
+    softmax in f32; masks in global positions ``q_offset + i``; a row with
+    no unmasked key gives 0.  Returns q's dtype.
+    """
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (D ** 0.5)
+    dev = q.device
+    q_pos = q_offset + torch.arange(Lq, device=dev)
+    kv_pos = torch.arange(Lkv, device=dev)
+    mask = _attention_mask(q_pos, kv_pos, Lkv, causal, window)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)      # fully masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, block: int = 512) -> torch.Tensor:
+    """Online-softmax attention as a loop over kv blocks (forward only).
+
+    The same function as :func:`attention` with O(Lq * block) memory: the
+    reference's ``_abw_fwd_impl``, which its CPU dispatch takes above a kv
+    length of 2048.  Its backward comes with the training slice.
+    """
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    pad = (-Lkv) % block
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    n_blocks = k.shape[2] // block
+    dev = q.device
+    qf = q.to(torch.float32)
+    q_pos = q_offset + torch.arange(Lq, device=dev)
+    acc = torch.zeros((B, Hq, Lq, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hq, Lq, 1), float("-inf"), device=dev)
+    l = torch.zeros((B, Hq, Lq, 1), dtype=torch.float32, device=dev)
+    for j in range(n_blocks):
+        sl = slice(j * block, (j + 1) * block)
+        kb = k[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
+        vb = v[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        kv_pos = j * block + torch.arange(block, device=dev)
+        mask = _attention_mask(q_pos, kv_pos, Lkv, causal, window)
+        s = s.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        acc = corr * acc + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+
+
+def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int = 128):
+    """Chunked SSD: the segment-sum matmul form of the Mamba-2 kernel, one
+    chunk of ``min(chunk, L)`` steps at a time with the state carried.
+
+    x (b, L, H, P), dt (b, L, H), A (H,), B/C (b, L, G, N).  Returns y in
+    x's dtype and the final state (b, H, N, P) f32.  The ragged tail is
+    padded with identity steps (zero x-contribution, zero log-decay).
+    """
+    batch, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    xdt = (x * dt[..., None]).to(torch.float32)           # (b, L, H, P)
+    ldec = (dt * A[None, None, :]).to(torch.float32)      # (b, L, H)
+    Bf, Cf = B.to(torch.float32), C.to(torch.float32)
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        ldec = F.pad(ldec, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, 0, 0, pad))
+    nc = (L + pad) // Q
+    dev = x.device
+    tril = torch.arange(Q, device=dev)[:, None] >= torch.arange(
+        Q, device=dev)[None, :]
+    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=dev)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, lc = xdt[:, sl], ldec[:, sl]
+        Bh = Bf[:, sl].repeat_interleave(rep, dim=2)       # (b, Q, H, N)
+        Ch = Cf[:, sl].repeat_interleave(rep, dim=2)
+        cum = torch.cumsum(lc, dim=1)                      # (b, Q, H)
+        cb = torch.einsum("bqhn,bkhn->bhqk", Ch, Bh)
+        seg = torch.exp(cum[:, :, None] - cum[:, None, :])  # (b, Q, Q, H)
+        seg = torch.where(tril, seg.permute(0, 3, 1, 2), 0.0)
+        y = torch.einsum("bhqk,bkhp->bqhp", cb * seg, xc)
+        y = y + torch.einsum("bqhn,bhnp->bqhp", Ch, h) * torch.exp(
+            cum)[..., None]
+        wB = Bh * torch.exp(cum[:, -1:, :] - cum)[..., None]
+        h = torch.exp(cum[:, -1])[..., None, None] * h + torch.einsum(
+            "bqhn,bqhp->bhnp", wB, xc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :L]
+    return y.to(x.dtype), h
+
+
+def ssd_scan(x, dt, A, B, C):
+    """Sequential selective-scan oracle:
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t . h_t``.
+
+    Shapes as :func:`ssd_scan_chunked`; returns (y in x's dtype, final
+    state f32).
+    """
+    batch, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Bh = B.repeat_interleave(rep, dim=2).to(torch.float32)
+    Ch = C.repeat_interleave(rep, dim=2).to(torch.float32)
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        a = torch.exp(dtf[:, t] * A[None, :])              # (b, H)
+        u = torch.einsum("bh,bhn,bhp->bhnp", dtf[:, t], Bh[:, t], xf[:, t])
+        h = a[..., None, None] * h + u
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], h))
+    y = torch.stack(ys, dim=1)                              # (b, L, H, P)
+    return y.to(x.dtype), h

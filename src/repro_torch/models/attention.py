@@ -1,0 +1,154 @@
+"""Self-attention for prefill and decode (``repro/models/attention.py``).
+
+Prefill goes through ``kernels.ops.flash_attention`` (the hand kernel on
+the card, the plain oracle on the CPU).  Decode is one query a request: a
+dense masked product against the cache, in the cache's storage dtype
+with f32 results, for two cache layouts:
+
+  * linear cache  (max_len slots, write at ``pos``)      — full attention
+  * ring cache    (window slots, write at ``pos % W``)   — sliding window
+
+Positions are per request, as the serving engine batches requests at
+different depths.  Unlike the reference, which returns new caches, the
+cache writes here are in place: the engine's cache is one set of tensors
+that every step updates, so a decode step never copies it.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .layers import P, apply_rope, matmul_f32
+
+
+# --- parameter specs -----------------------------------------------------
+
+def self_attn_spec(cfg) -> Any:
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv biases are not ported (no ported "
+                                  "architecture has them)")
+    hd = cfg.hd
+    return {
+        "wq": P((cfg.d_model, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": P((cfg.d_model, cfg.n_kv_heads, hd),
+                ("embed", "kv_heads", "head_dim")),
+        "wv": P((cfg.d_model, cfg.n_kv_heads, hd),
+                ("embed", "kv_heads", "head_dim")),
+        "wo": P((cfg.n_heads, hd, cfg.d_model), ("heads", "head_dim", "embed"),
+                fan_in_dims=(0, 1)),
+    }
+
+
+# --- projections -----------------------------------------------------------
+
+def _proj_q(params, x):
+    return torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+
+
+def _proj_kv(params, x):
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    return k, v
+
+
+def _proj_out(params, attn, x_dtype):
+    return torch.einsum("bshk,hkd->bsd", attn, params["wo"].to(x_dtype))
+
+
+# --- KV caches ---------------------------------------------------------------
+
+def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
+    """``{"k": (shape, dtype), "v": ...}`` of one attention layer's cache;
+    ``ring=True`` allocates ``window`` slots."""
+    slots = cfg.window if (ring and cfg.window) else max_len
+    kv = ((batch, cfg.n_kv_heads, slots, cfg.hd), cfg.cdtype)
+    return {"k": kv, "v": kv}
+
+
+def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
+               device=None) -> dict:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in cache_spec(cfg, batch, max_len,
+                                             ring=ring).items()}
+
+
+def _write_at(cache_kv: torch.Tensor, new: torch.Tensor,
+              slot: torch.Tensor) -> None:
+    """Write (B, Hkv, S, hd) into the (B, Hkv, L, hd) cache in place, request
+    b at slots ``slot[b] .. slot[b] + S - 1``.  A start past ``L - S`` is
+    clamped to it, as ``lax.dynamic_update_slice`` clamps."""
+    B, _, L, _ = cache_kv.shape
+    S = new.shape[2]
+    start = slot.to(torch.int64).clamp(0, L - S)
+    idx = start[:, None] + torch.arange(S, device=cache_kv.device)
+    rows = torch.arange(B, device=cache_kv.device)[:, None]
+    cache_kv[rows, :, idx] = new.transpose(1, 2).to(cache_kv.dtype)
+
+
+# --- prefill and decode -------------------------------------------------------
+
+def prefill_attention(params, x, cfg, cache, *, positions) -> tuple:
+    """Causal attention over the whole prompt that also fills the cache
+    from each request's first position (linear layout).
+
+    x (B, S, D), positions (B, S).  Returns (out, cache).
+    """
+    q = _proj_q(params, x)
+    k, v = _proj_kv(params, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kt = k.transpose(1, 2)          # (B, Hkv, S, hd)
+    vt = v.transpose(1, 2)
+    slots = positions[:, 0]         # requests start at their first position
+    _write_at(cache["k"], kt, slots)
+    _write_at(cache["v"], vt, slots)
+    out = ops.flash_attention(
+        q.transpose(1, 2).contiguous(), kt.contiguous(), vt.contiguous(),
+        causal=True, window=cfg.window)
+    return _proj_out(params, out.transpose(1, 2), x.dtype), cache
+
+
+def decode_attention(params, x, cfg, cache, *, pos, ring: bool = False
+                     ) -> tuple:
+    """One-token decode: x (B, 1, D), per-request positions pos (B,).
+
+    The scores and the output are products of the cache-dtype operands
+    with f32 results (the reference's ``preferred_element_type``; see
+    ``layers.matmul_f32``), the softmax in f32 and p cast to the cache
+    dtype before the second product, as the reference does.
+    """
+    B = x.shape[0]
+    L = cache["k"].shape[2]
+    q = _proj_q(params, x)                            # (B, 1, H, hd)
+    k_new, v_new = _proj_kv(params, x)                # (B, 1, Hkv, hd)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+
+    slot = (pos % L) if ring else pos
+    _write_at(cache["k"], k_new.transpose(1, 2), slot)
+    _write_at(cache["v"], v_new.transpose(1, 2), slot)
+
+    kc, vc = cache["k"], cache["v"]                   # (B, Hkv, L, hd)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q[:, 0].to(kc.dtype).reshape(B, cfg.n_kv_heads, rep, cfg.hd)
+    s = matmul_f32(qg, kc.transpose(-1, -2)) / (cfg.hd ** 0.5)  # (B,G,r,L)
+
+    idx = torch.arange(L, device=x.device)
+    p_ = pos.to(torch.int64)[:, None]
+    if ring:
+        # slot s holds absolute position pos - ((pos - s) mod L), if >= 0
+        kv_pos = p_ - torch.remainder(p_ - idx[None, :], L)
+    else:
+        kv_pos = idx[None, :].expand(B, L)
+    mask = (kv_pos >= 0) & (kv_pos <= p_)
+    if cfg.window is not None:
+        mask &= (p_ - kv_pos) < cfg.window
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(vc.dtype)
+    out = matmul_f32(p, vc)                           # (B, Hkv, rep, hd)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.hd).to(x.dtype)
+    return _proj_out(params, out, x.dtype), cache

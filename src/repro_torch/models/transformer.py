@@ -1,0 +1,243 @@
+"""The stacked decoder for serving (``repro/models/transformer.py``).
+
+A model is a *pattern* of sub-blocks repeated ``n_super`` times.  The
+reference runs the repeats as one ``lax.scan`` over stacked parameters;
+here a Python loop takes layer ``i`` as the view ``leaf[i]`` of the same
+stacked leaves.  Sub-block kinds of the ported families:
+
+  attn     pre-norm self-attention (+RoPE, causal, optional sliding window)
+  mlp      pre-norm SwiGLU MLP
+  mamba2   pre-norm Mamba-2 block
+  (zamba2's shared attention block is one set of parameters, applied after
+   every superblock with a cache entry of its own per application)
+
+Patterns: dense ``("attn", "mlp") x n_layers``; hybrid ``("mamba2",) x
+share_every [+ shared block] x n_super`` plus a tail without the shared
+block.  Two modes: prefill (the whole prompt, fills the caches from the
+request offsets) and decode (one token per request at per-request
+positions).  Caches are updated in place.  Teacher-forced ``forward`` and
+the loss wait for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from . import attention as attn
+from . import layers
+from . import ssm as ssm_lib
+
+
+# --- patterns ------------------------------------------------------------
+
+def pattern_for(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...], int]:
+    """(pattern, n_super, tail_pattern, n_tail)."""
+    fam = cfg.family
+    if fam == "dense":
+        return ("attn", "mlp"), cfg.n_layers, (), 0
+    if fam == "hybrid":
+        k = cfg.share_every
+        n_super, tail = divmod(cfg.n_layers, k)
+        return ("mamba2",) * k, n_super, ("mamba2",) * tail, tail
+    raise NotImplementedError(
+        f"family {fam!r} is not ported: the port serves dense and hybrid; "
+        "ssm (Mamba-1), moe, vlm and encdec wait in ROADMAP.md §1")
+
+
+def _block_spec(cfg, kind: str) -> Any:
+    d = cfg.d_model
+    if kind == "attn":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "attn": attn.self_attn_spec(cfg)}
+    if kind == "mlp":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "mlp": layers.mlp_spec(d, cfg.d_ff, cfg.act)}
+    if kind == "mamba2":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "ssm": ssm_lib.mamba2_spec(cfg)}
+    raise NotImplementedError(f"sub-block {kind!r} is not ported")
+
+
+def _shared_attn_cfg(cfg):
+    """Zamba2 shared block: its own head geometry on the same d_model."""
+    return cfg.replace(
+        n_heads=cfg.shared_attn_heads, n_kv_heads=cfg.shared_attn_heads,
+        head_dim=cfg.d_model // cfg.shared_attn_heads, window=None,
+        qkv_bias=False,
+    )
+
+
+def param_specs(cfg) -> Any:
+    pattern, n_super, tail, n_tail = pattern_for(cfg)
+    spec: dict = {
+        "embed": layers.embed_spec(cfg.vocab, cfg.d_model,
+                                   tie=cfg.tie_embeddings),
+        "final_norm": layers.norm_spec(cfg.d_model, cfg.norm),
+        "blocks": layers.stack(
+            {f"{i}_{k}": _block_spec(cfg, k) for i, k in enumerate(pattern)},
+            n_super,
+        ),
+    }
+    if n_tail:
+        spec["tail"] = layers.stack(
+            {f"{i}_{k}": _block_spec(cfg, k) for i, k in enumerate(tail)},
+            n_tail,
+        )
+    if cfg.family == "hybrid":
+        sc = _shared_attn_cfg(cfg)
+        spec["shared"] = {
+            "norm": layers.norm_spec(cfg.d_model, cfg.norm),
+            "attn": attn.self_attn_spec(sc),
+            "mlp_norm": layers.norm_spec(cfg.d_model, cfg.norm),
+            "mlp": layers.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act),
+        }
+    return spec
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree: a view of every leaf, no copy."""
+    return layers.tree_map(lambda t: t[i], tree)
+
+
+# --- sub-block application ---------------------------------------------------
+
+def _apply_block(kind: str, bp, x, cfg, ctx, cache):
+    """One sub-block; its cache entry (views) is updated in place."""
+    h = layers.apply_norm(bp["norm"], x, cfg.norm, cfg.norm_eps)
+    if kind == "attn":
+        if ctx["mode"] == "prefill":
+            y, _ = attn.prefill_attention(bp["attn"], h, cfg, cache,
+                                          positions=ctx["positions"])
+        else:
+            y, _ = attn.decode_attention(bp["attn"], h, cfg, cache,
+                                         pos=ctx["pos"], ring=ctx["ring"])
+        return x + y
+    if kind == "mlp":
+        return x + layers.apply_mlp(bp["mlp"], h, cfg.act)
+    if kind == "mamba2":
+        state = cache if ctx["mode"] == "decode" else None
+        y, new_state = ssm_lib.mamba2_forward(bp["ssm"], h, cfg, state=state)
+        cache["conv"].copy_(new_state["conv"])
+        cache["ssm"].copy_(new_state["ssm"])
+        return x + y
+    raise NotImplementedError(f"sub-block {kind!r} is not ported")
+
+
+def _apply_shared_attn(sp, x, cfg, ctx, cache):
+    """Zamba2 tied transformer block (attention + MLP), own cache entry."""
+    sc = _shared_attn_cfg(cfg)
+    h = layers.apply_norm(sp["norm"], x, cfg.norm, cfg.norm_eps)
+    if ctx["mode"] == "prefill":
+        y, _ = attn.prefill_attention(sp["attn"], h, sc, cache,
+                                      positions=ctx["positions"])
+    else:
+        y, _ = attn.decode_attention(sp["attn"], h, sc, cache,
+                                     pos=ctx["pos"], ring=False)
+    x = x + y
+    h = layers.apply_norm(sp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+    return x + layers.apply_mlp(sp["mlp"], h, cfg.act)
+
+
+def _run_stack(cfg, x, stacked_params, stacked_cache, ctx, pattern, n,
+               shared_params=None):
+    """The superblocks in order; layer i reads and writes row i of every
+    stacked cache leaf."""
+    for i in range(n):
+        bp = _layer(stacked_params, i)
+        for j, kind in enumerate(pattern):
+            key = f"{j}_{kind}"
+            ce = (_layer(stacked_cache[key], i)
+                  if key in stacked_cache else None)
+            x = _apply_block(kind, bp[key], x, cfg, ctx, ce)
+        if shared_params is not None:
+            x = _apply_shared_attn(shared_params, x, cfg, ctx,
+                                   _layer(stacked_cache["shared"], i))
+    return x
+
+
+# --- caches ---------------------------------------------------------------------
+
+def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
+    """Nested dict of ``(shape, dtype)`` for the decode cache, each entry
+    stacked over the layers of its stack; the tail has no shared entry."""
+    pattern, n_super, tail, n_tail = pattern_for(cfg)
+
+    def entry(kind):
+        if kind == "attn":
+            return attn.cache_spec(cfg, batch, max_len, ring=ring)
+        if kind == "mamba2":
+            return ssm_lib.mamba2_state_spec(cfg, batch)
+        return None
+
+    def build(pat, n, shared):
+        spec = {}
+        for i, kind in enumerate(pat):
+            e = entry(kind)
+            if e is not None:
+                spec[f"{i}_{kind}"] = e
+        if shared:
+            spec["shared"] = attn.cache_spec(_shared_attn_cfg(cfg), batch,
+                                             max_len, ring=False)
+        return layers.tree_map(lambda s: ((n,) + s[0], s[1]), spec)
+
+    hybrid = cfg.family == "hybrid"
+    out = {"blocks": build(pattern, n_super, hybrid)}
+    if n_tail:
+        out["tail"] = build(tail, n_tail, False)
+    return out
+
+
+def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
+               device=None) -> dict:
+    return layers.tree_map(
+        lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+        cache_spec(cfg, batch, max_len, ring=ring))
+
+
+# --- top-level passes -----------------------------------------------------------
+
+def cast_params(params, cfg):
+    """The compute-dtype view of the parameters.  The reference casts on
+    every call; the port casts once, when the model is built or loaded
+    (``Model.load``), so here ``.to`` finds each leaf in the compute dtype
+    already and returns it as it is, with no copy."""
+    return layers.tree_map(
+        lambda p: p.to(cfg.cdtype) if p.is_floating_point() else p, params)
+
+
+def _stacks(params, cache, cfg, x, ctx):
+    pattern, n_super, tail, n_tail = pattern_for(cfg)
+    x = _run_stack(cfg, x, params["blocks"], cache["blocks"], ctx, pattern,
+                   n_super, params.get("shared"))
+    if n_tail:
+        x = _run_stack(cfg, x, params["tail"], cache["tail"], ctx, tail,
+                       n_tail)
+    return layers.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def prefill(params, batch_inputs, cfg, cache, *, positions=None):
+    """Fill the caches for a batch of prompts; returns (last logits f32
+    (B, vocab), cache)."""
+    params = cast_params(params, cfg)
+    tokens = batch_inputs["tokens"]
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
+    ctx = {"mode": "prefill", "positions": positions}
+    x = _stacks(params, cache, cfg, x, ctx)
+    logits = layers.logits_out(params["embed"], x[:, -1:])
+    return logits[:, 0], cache
+
+
+def decode_step(params, token, cfg, cache, pos, *, ring: bool = False):
+    """One token per request.  token: (B,), pos: (B,).  Returns (logits f32
+    (B, vocab), cache)."""
+    params = cast_params(params, cfg)
+    x = layers.embed_tokens(params["embed"], token[:, None], cfg.cdtype)
+    ctx = {"mode": "decode", "pos": pos, "ring": ring}
+    x = _stacks(params, cache, cfg, x, ctx)
+    logits = layers.logits_out(params["embed"], x)
+    return logits[:, 0], cache

@@ -23,9 +23,14 @@ from repro_torch.core.hough import _device_raster  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     make_drive_cycle, scenario_batch, scenario_names,
 )
+from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import conv2d_gemm as conv_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fused_detect as fused_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.serve import Engine, Request  # noqa: E402
 
 
 def _t(a):
@@ -208,3 +213,158 @@ def test_fused_tracking_on_card_equals_cpu(card):
     for a, b in zip(runs[0][:-1], runs[1][:-1]):
         assert torch.equal(a.result.peaks.cpu(), b.result.peaks)
         assert a.gated == b.gated and a.tracks == b.tracks
+
+
+# --- the LM kernels ------------------------------------------------------------
+
+
+def _bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at the larger magnitude of each pair."""
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bf16_attention_tol(got, want, v):
+    """Both round an f32 value once to bf16, so they are one bf16 ulp apart
+    at most, plus the f32 values' own difference: the f32 comparison's
+    1e-5 of max|v| (summation order), which matters only where the
+    output cancels to near 0 and its ulp is tiny."""
+    g, w = got.float(), want.float()
+    return g, w, _bf16_ulp(g, w) + 1e-5 * float(v.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,window,q_offset", [
+    ((1, 4, 4, 37, 37, 64), True, None, 0),       # ragged L, one tile
+    ((2, 8, 2, 100, 100, 80), True, 24, 0),       # GQA 4, window, D = 80
+    ((1, 4, 1, 130, 130, 16), False, None, 0),    # MQA, non-causal
+    ((1, 4, 2, 3, 200, 64), True, None, 197),     # q_offset at the end
+    ((1, 2, 2, 24, 16, 8), False, 1, 0),          # fully masked rows
+    ((1, 2, 2, 70, 300, 128), True, 64, 230),     # D = 128, window, offset
+])
+def test_attention_kernel_matches_plain_on_card(card, rng, dtype, shape,
+                                                causal, window, q_offset):
+    """f32: 1e-5 of the plain version on the card (online vs dense sums);
+    bf16: within one bf16 ulp of it (both round an f32 value once)."""
+    B, Hq, Hkv, Lq, Lkv, D = shape
+    dt = getattr(torch, dtype)
+    q = _t(rng.normal(size=(B, Hq, Lq, D)).astype(np.float32)).to(card, dt)
+    k = _t(rng.normal(size=(B, Hkv, Lkv, D)).astype(np.float32)).to(card, dt)
+    v = _t(rng.normal(size=(B, Hkv, Lkv, D)).astype(np.float32)).to(card, dt)
+    before = attn_mod.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert attn_mod.launches == before + 1 and got.dtype == dt
+    want = ref.attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        g, w, tol = _bf16_attention_tol(got, want, v)
+        excess = float(((g - w).abs() - tol).max())
+        assert excess <= 0.0, excess
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros((1, 2, 8, 16), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_mod.flash_attention(q.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros((1, 2, 8, 160), device=card)
+        attn_mod.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="dtype"):
+        attn_mod.flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError, match="pair"):
+        attn_mod.flash_attention(q, torch.zeros((1, 3, 8, 16), device=card),
+                                 torch.zeros((1, 3, 8, 16), device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,H,P,N,G,chunk", [
+    (1, 97, 64, 64, 64, 1, 128),     # zamba2's heads, one ragged chunk
+    (1, 300, 64, 64, 64, 1, 128),    # three chunks, ragged tail
+    (2, 80, 4, 16, 8, 2, 16),        # the reference's sweep, G = 2
+    (2, 80, 4, 16, 8, 1, 32),
+    (1, 1, 4, 16, 8, 2, 128),        # L = 1
+    (1, 45, 6, 12, 20, 3, 13),       # odd chunk, rounded up in the kernel
+])
+def test_ssd_kernel_matches_plain_on_card(card, rng, b, L, H, P, N, G, chunk):
+    """1e-4 relative to the chunked plain version at the same chunk, and
+    2e-3 to the sequential oracle (tests/test_kernels.py's tolerance)."""
+    x = _t((rng.normal(size=(b, L, H, P)) * 0.1).astype(np.float32)).to(card)
+    dt = _t(rng.uniform(0.01, 0.1, (b, L, H)).astype(np.float32)).to(card)
+    A = _t(-rng.uniform(0.5, 1.5, (H,)).astype(np.float32)).to(card)
+    Bm = _t(rng.normal(size=(b, L, G, N)).astype(np.float32)).to(card)
+    C = _t(rng.normal(size=(b, L, G, N)).astype(np.float32)).to(card)
+    before = ssd_mod.launches
+    y, h = ops.ssd_scan(x, dt, A, Bm, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1
+    yc, hc = ref.ssd_scan_chunked(x, dt, A, Bm, C, chunk=chunk)
+    torch.testing.assert_close(y, yc, rtol=1e-4, atol=1e-4 * float(
+        yc.abs().max()))
+    torch.testing.assert_close(h, hc, rtol=1e-4, atol=1e-4 * float(
+        hc.abs().max()))
+    ys, hs = ref.ssd_scan(x, dt, A, Bm, C)
+    torch.testing.assert_close(y, ys, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(h, hs, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_smem_formula_matches_the_source(card):
+    lib = ssd_mod._lib()
+    for Q, N, P in ((128, 64, 64), (97, 64, 64), (16, 16, 32), (13, 20, 12)):
+        assert lib.ssd_scan_smem_bytes(Q, N, P) == ssd_mod.smem_bytes(Q, N, P)
+    with pytest.raises(TypeError, match="f32"):
+        z = torch.zeros((1, 4, 2, 8), device=card)
+        ssd_mod.ssd_scan(z.half(), z[..., 0], z[0, 0, :, 0], z, z)
+
+
+@pytest.mark.cuda
+def test_zamba2_smoke_on_card_matches_cpu(card, rng):
+    """zamba2 SMOKE at f32 compute: prefill and decode logits on the card
+    within 1e-4 of the largest CPU logit; each prefill launches one
+    attention kernel a superblock and one SSD kernel a Mamba-2 layer, a
+    decode step neither."""
+    cfg = get_smoke("zamba2-1.2b").replace(compute_dtype="float32")
+    cpu = build(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build(cfg)
+    pg = gpu.load(params)
+    toks = _t(rng.integers(0, cfg.vocab, (2, 20)).astype(np.int64))
+    cc, cg = cpu.init_cache(2, 32), gpu.init_cache(2, 32)
+    ops.reset_launch_counts()
+    lg, cg = gpu.prefill(pg, {"tokens": toks[:, :16].to(card)}, cg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2
+    assert ops.launch_counts()["ssd_scan"] == 5
+    lc, cc = cpu.prefill(params, {"tokens": toks[:, :16]}, cc)
+    pairs = [(lg, lc)]
+    ops.reset_launch_counts()
+    for t in range(16, 20):
+        pos = torch.full((2,), t)
+        lg, cg = gpu.decode_step(pg, toks[:, t].to(card), cg, pos.to(card))
+        lc, cc = cpu.decode_step(params, toks[:, t], cc, pos)
+        pairs.append((lg, lc))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["ssd_scan"] == 0
+    for lg, lc in pairs:
+        tau = 1e-4 * float(lc.abs().max())
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=tau)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_serves_every_request(card):
+    cfg = get_smoke("zamba2-1.2b")
+    eng = Engine(build(cfg), n_slots=2, max_len=48, seed=1)
+    reqs = [Request(uid=i, prompt=list(range(1, 4 + 3 * i)),
+                    max_new_tokens=5) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and len(r.output) == 5 for r in reqs)

@@ -350,4 +350,5 @@ def test_cpu_fused_path_launches_no_kernel(frames):
     fused_hough(_t(imgs[:2]), CannyConfig(),
                 HoughConfig(compact=True, max_edges=512))
     assert ops.launch_counts() == {"conv2d_gemm": 0, "fused_detect": 0,
-                                   "hough_vote": 0}
+                                   "hough_vote": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}

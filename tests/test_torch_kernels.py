@@ -309,4 +309,5 @@ def test_cpu_dispatch_launches_no_kernel(rng):
     ops.conv2d_gemm(_t(rng.normal(size=(9, 9)).astype(np.float32)),
                     torch.ones(1, 3, 3))
     assert ops.launch_counts() == {"conv2d_gemm": 0, "fused_detect": 0,
-                                   "hough_vote": 0}
+                                   "hough_vote": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}
