@@ -18,12 +18,23 @@ zeroed just before it and read just after:
     fused_corridors=8)`` on the 32-frame "converging" drive cycle, each
     frame on its path (fused, gated or full sweep).
 
-It also gates per-family F1 at 240x320 against
-``benchmarks/baselines/f1_baseline.json``, streams under
+It also holds the fused kernel's f16 and int8 gradient tiers to the
+card's staged path bit for bit (int8 to the CPU too), gates per-family F1
+at 240x320 against ``benchmarks/baselines/f1_baseline.json`` (the f32
+detector, and the f16 / int8 tiers staged and fused against its
+"quantized" section), streams under
 ``torch.cuda.set_sync_debug_mode("error")``, and times each kernel beside
 its bound, its plain version and one PyTorch library call where one
 computes the same function, the fused plan against the gated staged plan,
 and the tracking loop.
+
+Then the LM slice on zamba2-1.2b at full width (``lm_phases``): the
+attention and SSD kernels against their plain versions, a full-width f32
+cut against the CPU, the full model serving 8 requests through ``Engine``
+in bf16 (and f32), the same traffic on ``quantize_weights_int8`` weights
+dequantized to bf16, and the float -> int rewrite's GEMM
+(``matmul_phases``): the matmul kernel against its plain version and
+``quantized_matmul`` at the model's full-width GEMMs, with times.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -52,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 
 def emit(obj) -> None:
@@ -134,10 +146,12 @@ def lm_phases(cuda_ms) -> list:
     import torch.nn.functional as F
 
     from repro_torch.configs import get
+    from repro_torch.core import quantize_weights_int8
     from repro_torch.kernels import flash_attention as attn_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.models import build
+    from repro_torch.models.layers import tree_items
     from repro_torch.serve import Engine, Request
 
     dev = torch.device("cuda", 0)
@@ -401,7 +415,95 @@ def lm_phases(cuda_ms) -> list:
     runs["decode_step_4_slots"] = gpu_trace(lambda: model.decode_step(
         params, tok, eng.cache, pos), "zamba2_decode", 1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del params, eng
+    del eng
+
+    # --- serve_int8_weights: the paper's float -> int rewrite on the weights
+    # quantize_weights_int8 on the card, each leaf held against the CPU's
+    # quantization of the same leaf; dequantized to bf16, the same traffic
+    # through the Engine (the matmul kernel stays off this path: the int8
+    # weights are dequantized once, as the reference serves them); then
+    # tests/test_serving_extras.py's teacher-forced measure, 12 decode
+    # steps of 2 rows with both weight sets.
+    t0 = time.perf_counter()
+    qw, dequant = quantize_weights_int8(params, compute_dtype=cfg.cdtype)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaves = differ = 0
+    for (path, p), (_, qv), (_, sv) in zip(tree_items(params),
+                                           tree_items(qw["q"]),
+                                           tree_items(qw["s"])):
+        on_cpu, _ = quantize_weights_int8({"p": p.cpu()})
+        leaves += 1
+        if not (torch.equal(qv.cpu(), on_cpu["q"]["p"])
+                and torch.equal(sv.cpu(), on_cpu["s"]["p"])):
+            differ += 1
+    cpu_check_s = time.perf_counter() - t0
+    params_q = dequant(qw["q"], qw["s"])
+    del qw
+    weight_err = max(
+        float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+            1e-30)) for (_, a), (_, b) in zip(tree_items(params_q),
+                                              tree_items(params)))
+    probe_q, _, reqs_q, run_q_s = serve_traffic(model, params_q, prompts,
+                                                SERVE_NEW)
+    done_q = all(r.done and len(r.output) == SERVE_NEW for r in reqs_q)
+    finite_q = all(c["finite"] for c in probe_q.prefills + probe_q.decodes)
+    bad_pq, bad_dq = launch_faults(probe_q, per_prefill)
+    same_tok = sum(a == b for r, rq in zip(reqs, reqs_q)
+                   for a, b in zip(r.output, rq.output))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 12))).to(dev)
+    caches = [model.init_cache(2, 24), model.init_cache(2, 24)]
+    tf_errs, tf_la, tf_match = [], [], 0
+    for t in range(12):
+        pos = torch.full((2,), t, device=dev)
+        la, caches[0] = model.decode_step(params, toks[:, t], caches[0], pos)
+        lb, caches[1] = model.decode_step(params_q, toks[:, t], caches[1],
+                                          pos)
+        tf_errs.append(float((la - lb).abs().max()))
+        tf_la.append(la)
+        tf_match += int((la.argmax(-1) == lb.argmax(-1)).sum())
+    tf_std = float(torch.stack(tf_la).std(correction=0))
+    del params_q, caches
+    int8_ok = (differ == 0 and done_q and finite_q and not bad_pq
+               and not bad_dq)
+    emit({"phase": "serve_int8_weights", "model": "zamba2-1.2b",
+          "weights": "quantize_weights_int8 (int8, one f32 scale per output "
+                     "column), dequantized to bf16",
+          "leaves": leaves, "leaves_differing_from_cpu": differ,
+          "weight_rel_err_max_over_leaves": weight_err,
+          "quantize_seconds_on_card": quant_s,
+          "cpu_check_seconds": cpu_check_s,
+          "requests_done": sum(r.done for r in reqs_q),
+          "all_logits_finite": finite_q,
+          "expected_launches_per_prefill": per_prefill,
+          "launches_per_prefill": [
+              {k: c["launches"][k] for k in ("flash_attention", "ssd_scan",
+                                             "tiled_matmul")}
+              for c in probe_q.prefills],
+          "prefills_with_wrong_launches": len(bad_pq),
+          "decode_steps_launching_a_kernel": len(bad_dq),
+          "engine_run_seconds": run_q_s,
+          "tokens_per_s": sum(len(r.output) for r in reqs_q) / run_q_s,
+          "tokens_equal_to_bf16_run": same_tok,
+          "tokens_compared": SERVE_NEW * len(reqs),
+          "requests_equal_to_bf16_run": sum(r.output == rq.output
+                                            for r, rq in zip(reqs, reqs_q)),
+          "teacher_forced_max_abs_err_over_std": max(tf_errs) / tf_std,
+          "teacher_forced_top1_agree": tf_match,
+          "teacher_forced_tokens": 24,
+          "reference_criteria": "max|d| < 0.5 std, top-1 >= 70% "
+                                "(tests/test_serving_extras.py; reported)",
+          "ok": int8_ok})
+    if not int8_ok:
+        raise SystemExit(
+            f"int8-weight serving failed: {differ} leaves differ from the "
+            f"CPU, done={done_q} finite={finite_q} prefill launches "
+            f"{bad_pq[:2]} decode launches {bad_dq[:2]}")
+
+    matmul_entry = matmul_phases(cuda_ms, params)
+    del params
 
     # f32 compute, the same traffic: the decode path against teacher-forced
     # prefills.  In bf16 the two paths round differently (decode rounds p
@@ -532,7 +634,209 @@ def lm_phases(cuda_ms) -> list:
          "replaces": "src/repro/kernels/ssd_scan.py:72",
          "path": "zamba2_serve", "launches": launches["ssd_scan"],
          "max_abs_err": ssd_err, **ssd_mean},
+        matmul_entry,
     ]
+
+
+def matmul_phases(cuda_ms, params) -> dict:
+    """The float -> int rewrite's GEMM: the matmul kernel against its plain
+    version on the card (``matmul_vs_plain``), ``quantized_matmul`` at
+    zamba2-1.2b's full-width GEMMs with the launches read around each call
+    (``quantized_matmul``, the slice's main path), and the kernel's times
+    beside its bound and the library's (``matmul_times``).  ``params`` are
+    the seeded model's; the weights are layer 0's leaves.  Returns the
+    kernel's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import quantize, quantized_matmul
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tiled_matmul as mm_mod
+
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(14)
+    weights = {   # name: (leaf, K, N)
+        "mamba2_in_proj": params["blocks"]["0_mamba2"]["ssm"]["in_proj"][0],
+        "mamba2_out_proj": params["blocks"]["0_mamba2"]["ssm"]["out_proj"][0],
+        "shared_mlp_wo": params["shared"]["mlp"]["wo"],
+        "head": params["embed"]["unembed"],
+    }
+    ROWS = (999, 4)     # the 1000-token prefill; a decode step of 4 slots
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dev, dtype)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, shape)
+                                .astype(np.int8)).to(dev)
+
+    # --- matmul_vs_plain ------------------------------------------------
+    # int8: bit-exact with the plain version on the card (float64 products,
+    # exact below 2^53) and, where small enough, on the CPU (int64).
+    # Floats: the kernel's f32 sums (the f32 output, or out_dtype=f32 for
+    # bf16 / f16 operands), their largest error against a float64 product
+    # relative to |x| @ |y| within twice the plain f32 product's own; a
+    # bf16 / f16 output is its f32 sum rounded once to nearest even.  Those
+    # two bound a bf16 / f16 output to one output ulp of the plain version
+    # plus 3x the plain's f32 error; the elements past one ulp, outputs
+    # that cancel to near 0, where the two f32 sums differ by more than the
+    # ulp, are counted.
+    checks = []
+    odd = [(33, 129, 65), (100, 70, 50), (37, 1, 45), (4, 2048, 8384)]
+    full = [(m, w.shape[0], w.shape[1]) for w in weights.values()
+            for m in ROWS]
+    for m, k, n in odd + full:
+        x, y = ints(m, k), ints(k, n)
+        got = mm_mod.tiled_matmul(x, y)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref.tiled_matmul(x, y))
+        c = {"kernel": "tiled_matmul", "dtype": "int8", "shape": [m, k, n],
+             "bit_exact_vs_card_plain": same}
+        if m * k * n <= 10 ** 8:
+            same_cpu = torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(),
+                                                               y.cpu()))
+            c["bit_exact_vs_cpu_plain"] = same_cpu
+            same = same and same_cpu
+        checks.append({**c, "max_abs_err": 0.0 if same else float(
+            (got.double() - ref.tiled_matmul(x, y).double()).abs().max()),
+            "ok": same})
+    for m, k, n in [(32, 48, 16)] + odd:
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+        y = torch.from_numpy((rng.normal(size=(k, n)) * 0.02)
+                             .astype(np.float32))
+        got = quantized_matmul(x.to(dev), y.to(dev))
+        same = torch.equal(got.cpu(), quantized_matmul(x, y))
+        checks.append({"kernel": "quantized_matmul", "shape": [m, k, n],
+                       "bit_exact_vs_cpu": same, "ok": same})
+    float_err, f32 = 0.0, torch.float32
+    for dt in (f32, torch.bfloat16, torch.float16):
+        for m, k, n in odd + [(999, 2048, 8384)]:
+            x, y = normal(m, k, dtype=dt), normal(k, n, dtype=dt)
+            got = mm_mod.tiled_matmul(x, y)
+            want = ref.tiled_matmul(x, y)
+            k32 = got if dt == f32 else mm_mod.tiled_matmul(x, y,
+                                                            out_dtype=f32)
+            p32 = want if dt == f32 else ref.tiled_matmul(x, y,
+                                                          out_dtype=f32)
+            x64, y64 = x.double(), y.double()
+            exact = x64 @ y64
+            scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
+            e_k = float(((k32.double() - exact).abs() / scale).max())
+            e_p = float(((p32.double() - exact).abs() / scale).max())
+            g, w = got.double(), want.double()
+            err = float((g - w).abs().max())
+            c = {"kernel": "tiled_matmul", "dtype": str(dt)[6:],
+                 "shape": [m, k, n], "max_abs_err_vs_plain": err,
+                 "f32_sum_rel_err_vs_f64": e_k,
+                 "plain_f32_sum_rel_err_vs_f64": e_p,
+                 "tol": "f32 sums within 2x the plain's error vs f64"}
+            ok = e_k <= 2.0 * e_p + 1e-12
+            if dt != f32:
+                mant = 7 if dt == torch.bfloat16 else 10
+                mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+                ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+                once = torch.equal(got, k32.to(dt))
+                c.update(output_is_its_f32_sum_rounded_once=once,
+                         elements_beyond_1_output_ulp=int(
+                             ((g - w).abs() > ulp).sum()),
+                         elements=g.numel())
+                c["tol"] += "; output = its f32 sum rounded to nearest even"
+                ok = ok and once
+            c["ok"] = ok
+            float_err = max(float_err, err)
+            checks.append(c)
+    emit({"phase": "matmul_vs_plain", "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"matmul kernel checks failed: {bad}")
+
+    # --- quantized_matmul: the main path at zamba2-1.2b's GEMMs ------------
+    rows, launches = [], 0
+    for name, w in weights.items():
+        K, N = w.shape
+        w32 = w.float()
+        for m in ROWS:
+            x = normal(m, K)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            out = quantized_matmul(x, w32)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            launches += counts["tiled_matmul"]
+            qx, qw = quantize(x), quantize(w32)
+            plain = (ref.tiled_matmul(qx.values, qw.values).float()
+                     * (qx.scale * qw.scale))
+            exact = x @ w32
+            rows.append({
+                "gemm": name, "shape": [m, K, N], "launches": counts,
+                "bit_exact_vs_plain": torch.equal(out, plain),
+                "finite": bool(torch.isfinite(out).all()),
+                "rel_err_vs_f32_product": float(
+                    (out - exact).abs().max() / exact.abs().max()),
+                "ms": cuda_ms(lambda: quantized_matmul(x, w32), reps=5)})
+    emit({"phase": "quantized_matmul", "model": "zamba2-1.2b",
+          "weights": "layer 0's leaves of the model drawn from seed 0 (bf16,"
+                     " upcast to f32); activations seeded normals",
+          "rows": rows})
+    want_counts = {k: 0 for k in ops.launch_counts()} | {"tiled_matmul": 1}
+    bad = [r for r in rows if r["launches"] != want_counts
+           or not r["bit_exact_vs_plain"] or not r["finite"]]
+    if bad:
+        raise SystemExit(f"quantized_matmul failed: {bad}")
+
+    # --- matmul_times -------------------------------------------------------
+    # int8: the bound is the larger of each operand read once and the int32
+    # product written once, and 2MNK operations at the int8 tensor-core
+    # rate; the library call is torch._int_mm (it needs M > 16 and K, N
+    # multiples of 8, so none at M = 4).  bf16 / f32 at in_proj: torch.mm
+    # (TF32 off) and the bf16 tensor-core or f32 rate.
+    times = []
+    for name, w in weights.items():
+        K, N = w.shape
+        for m in ROWS:
+            x, y = ints(m, K), ints(K, N)
+            b, by = bound_ms(m * K + K * N + 4 * m * N, 2.0 * m * N * K,
+                             INT8_OPS_PER_S)
+            times.append({
+                "gemm": name, "dtype": "int8", "shape": [m, K, N],
+                "ms": cuda_ms(lambda: mm_mod.tiled_matmul(x, y)),
+                "plain_ms": cuda_ms(lambda: ref.tiled_matmul(x, y), reps=5),
+                "library_ms": (cuda_ms(lambda: torch._int_mm(x, y))
+                               if m > 16 else None),
+                "library": "torch._int_mm" if m > 16 else "none",
+                "bound_ms": b, "bound_by": by})
+    K, N = weights["mamba2_in_proj"].shape
+    for dt, rate in ((torch.bfloat16, BF16_FLOPS_PER_S),
+                     (torch.float32, F32_FLOPS_PER_S)):
+        x, y = normal(999, K, dtype=dt), normal(K, N, dtype=dt)
+        size = x.element_size()
+        b, by = bound_ms(size * (999 * K + K * N + 999 * N),
+                         2.0 * 999 * N * K, rate)
+        times.append({
+            "gemm": "mamba2_in_proj", "dtype": str(dt)[6:],
+            "shape": [999, K, N],
+            "ms": cuda_ms(lambda: ops.tiled_matmul(x, y)),
+            "plain_ms": cuda_ms(lambda: ref.tiled_matmul(x, y), reps=5),
+            "library_ms": cuda_ms(lambda: torch.mm(x, y)),
+            "library": "torch.mm", "bound_ms": b, "bound_by": by})
+    emit({"phase": "matmul_times", "note": "ms per launch; the plain "
+          "version multiplies int8 in float64 and floats in f32 (TF32 off)",
+          "rows": times})
+    main = times[0]     # int8 at in_proj, M = 999: the 1000-token prefill
+    return {"name": "tiled_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
+            "replaces": "src/repro/kernels/tiled_matmul.py:57",
+            "path": "quantized_matmul", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c.get("dtype") == "int8"),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "float_max_abs_err_vs_plain": float_err,
+            "by_shape": [{k: r[k] for k in ("gemm", "dtype", "shape", "ms",
+                                             "bound_ms", "library_ms")}
+                         for r in times]}
 
 
 def main() -> int:
@@ -762,6 +1066,62 @@ def main() -> int:
     if bad:
         raise SystemExit(f"fused_detect checks failed: {bad}")
 
+    # The gradient tiers, f16 and int8, on the same cases.  int8: bit-exact
+    # with the card's staged path (its plain version), with the plain
+    # version on a CPU copy (integer convs are exact in any order, and the
+    # scales round once on both), and so with the staged int8 detector at
+    # full coverage.  f16: bit-exact with the card's staged f16 path (the
+    # conv kernel's __hfma chains, tap for tap); against the CPU the f16
+    # sums run in another order, and the edge pixels that differ are
+    # counted.
+    tier_checks = []
+    tier_cases = [(src, shape, dataclasses.replace(c, grad_dtype=g), cor, me)
+                  for g in ("f16", "int8")
+                  for src, shape, c, cor, me in fused_cases
+                  if not c.integer and c.variant == "full"
+                  and c.hysteresis_iters == 8 and me != 512]
+    for source, shape, ccfg, cor, me in tier_cases:
+        x = (torch.from_numpy(frames) if source == "main" else
+             torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)))
+        cor_t = None if cor is None else torch.from_numpy(cor)
+        got = [t.cpu() for t in fused_mod.fused_detect(
+            x.to(dev), None if cor_t is None else cor_t.to(dev), cfg=ccfg,
+            edge_threshold=250.0, max_edges=me)]
+        torch.cuda.synchronize()
+        w_card = ref.fused_weights(x.to(dev), cfg=ccfg, edge_threshold=250.0,
+                                   corridors=None if cor_t is None
+                                   else cor_t.to(dev))
+        staged = [t.cpu() for t in ops.compact_edges(
+            _device_raster(shape[1], shape[2], dev), w_card, max_edges=me)]
+        w_cpu = ref.fused_weights(x, cfg=ccfg, edge_threshold=250.0,
+                                  corridors=cor_t)
+        same_staged = all(torch.equal(a, b) for a, b in zip(got, staged))
+        c = {"kernel": "fused_detect", "grad_dtype": ccfg.grad_dtype,
+             "frames": source, "shape": list(shape), "fused_masks": ccfg.fused,
+             "corridors": None if cor is None else len(cor), "max_edges": me,
+             "counts": got[2].tolist(),
+             "bit_exact_vs_card_plain": same_staged,
+             "edge_pixels_card_vs_cpu_plain": int((w_card.cpu()
+                                                   != w_cpu).sum())}
+        if ccfg.grad_dtype == "int8":
+            want = ref.compact_raster(w_cpu, width=shape[2], max_edges=me)
+            c["bit_exact_vs_cpu_plain"] = all(torch.equal(a, b)
+                                              for a, b in zip(got, want))
+        c["ok"] = same_staged and c.get("bit_exact_vs_cpu_plain", True)
+        tier_checks.append(c)
+    # why the port's quantization divides by a device tensor: a CUDA tensor
+    # divided by a Python number is multiplied by its reciprocal instead
+    qv = torch.from_numpy(np.random.default_rng(159).uniform(
+        0, 300, 100000).astype(np.float32)).to(dev)
+    twice = int((qv / GAUSS_NORM
+                 != qv / torch.full((), GAUSS_NORM, device=dev)).sum())
+    emit({"phase": "fused_tiers_vs_plain", "checks": tier_checks,
+          "quotients_by_159_of_100000_differing_python_number_vs_tensor":
+              twice})
+    bad = [c for c in tier_checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"fused_detect tier checks failed: {bad}")
+
     # --- 3. the main path at 720x1280, batch 8 -----------------------------
     # Each path runs with the launch counts zeroed just before it and read
     # just after: one batch is two conv launches (Gauss, then the Sobel
@@ -896,6 +1256,43 @@ def main() -> int:
     if f1_bad:
         raise SystemExit(f"per-family F1 differs from the baseline: {f1_bad}")
 
+    # The quantized gradient tiers, staged and fused (scenario_suite.py's
+    # quantized rows): int8 must equal the baseline's F1, f16 reach each
+    # family's floor (its sums run in another order than the CPU's).  The
+    # launch counts of each path's first batch are zeroed just before it
+    # and read just after.
+    qbase = json.loads((ROOT / "benchmarks" / "baselines"
+                        / "f1_baseline.json").read_text())["quantized"]
+    qf1, q_bad = {}, {}
+    for grad in ("f16", "int8"):
+        for fused in (False, True):
+            path = f"{'fused' if fused else 'staged'}_{grad}"
+            qdet = LineDetector(PipelineConfig(
+                canny=CannyConfig(grad_dtype=grad), hough=auto, fused=fused))
+            qf1[path] = {}
+            for i, name in enumerate(scenario_names()):
+                imgs, tr = scenario_batch([name] * 8, hs, ws, seed=0)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                r = qdet.detect_batch(imgs)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    launches[f"quantized_{path}"] = ops.launch_counts()
+                f = aggregate_scores(score_batch(
+                    r.peaks.cpu().numpy(), r.valid.cpu().numpy(), tr))["f1"]
+                b = qbase[f"{name}/{grad}"]
+                qf1[path][name] = {"f1": f, "baseline": b["f1"],
+                                   "floor": b["f1_floor"],
+                                   "minus_baseline": f - b["f1"]}
+                if (f != b["f1"]) if grad == "int8" else (f < b["f1_floor"]):
+                    q_bad[f"{path}/{name}"] = qf1[path][name]
+    emit({"phase": "quantized_f1_gate", "hw": [hs, ws], "seeds": 8,
+          "rule": "int8 equals the baseline's f1; f16 reaches f1_floor",
+          "f1": qf1, "failures": q_bad})
+    if q_bad:
+        raise SystemExit(f"quantized F1 gate failed: {q_bad}")
+
     # --- 5. warm streaming with no host sync --------------------------------
     scenes = list(scenario_stream("mixed", 20, hs, ws, seed=5))
     stream_det = LineDetector(PipelineConfig(hough=auto))
@@ -912,13 +1309,16 @@ def main() -> int:
         raise SystemExit("detect_stream disagrees with detect_batch")
 
     # --- 6. each main path went through its kernels -----------------------
-    no_lm = {"flash_attention": 0, "ssd_scan": 0}
+    no_lm = {"flash_attention": 0, "ssd_scan": 0, "tiled_matmul": 0}
     staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1,
                    **no_lm}
     fused_call = {"conv2d_gemm": 0, "fused_detect": 1, "hough_vote": 1,
                   **no_lm}
     expected = {"boom": staged_call, "boom+gemmini": staged_call,
                 "fused_detector": fused_call}
+    for grad in ("f16", "int8"):
+        expected[f"quantized_staged_{grad}"] = staged_call
+        expected[f"quantized_fused_{grad}"] = fused_call
     wrong = {p: c for p, c in launches.items() if c != expected[p]}
     per_frame = {"fused": fused_call, "gated": staged_call,
                  "full": staged_call}
@@ -1034,6 +1434,34 @@ def main() -> int:
             "library_ms": None, "bound_ms": fb, "bound_by": fby,
         }
     emit({"phase": "fused_times", "by_shape": fused_times})
+
+    # The gradient tiers at the batched detector's shape, beside the f32
+    # tier: ms per launch, and each of the kernel's phases (pre-pass, tile,
+    # scan, scatter) from one profiled window of three launches.  The bound
+    # is the f32 tier's: the frames read once and the buffer written once,
+    # the operations counted at the f32 rate (the peak table has no f16
+    # FMA or int32 rate).
+    tier_times = {}
+    for grad in ("f32", "f16", "int8"):
+        tcfg = CannyConfig(grad_dtype=grad)
+        run = (lambda c=tcfg: fused_mod.fused_detect(
+            frames_dev, cfg=c, edge_threshold=250.0, max_edges=cap))
+        ms = cuda_ms(run)
+        t = gpu_trace(run, f"fused_detect_{grad}", 3)
+        tier_times[grad] = {
+            "ms": ms,
+            "plain_ms": cuda_ms(lambda c=tcfg: ref.fused_detect(
+                frames_dev, cfg=c, edge_threshold=250.0, max_edges=cap),
+                reps=5),
+            "library_ms": None,
+            "bound_ms": fused_times["fused_detector"]["bound_ms"],
+            "bound_by": fused_times["fused_detector"]["bound_by"],
+            "phases_ms_per_launch": {
+                e["name"].replace("(anonymous namespace)::", "")
+                .removeprefix("void ").split("(")[0]: e["ms"] / 3
+                for e in t["top"]}}
+    emit({"phase": "fused_tier_times", "hw": [H, W], "batch": DEPLOY_BATCH,
+          "by_grad_dtype": tier_times})
 
     # the fused plan against the gated staged plan on one tracked frame,
     # same bins and corridors, host clock to synchronize (in turns)
@@ -1183,6 +1611,10 @@ def main() -> int:
                 "launches": per_frame["fused"]["fused_detect"],
                 "frames": tp_card.fused_frames,
                 **{k: fused_times["tracking_frame"][k] for k in keys}},
+            **{f"fused_detector_{g}": {
+                "launches": launches[f"quantized_fused_{g}"]["fused_detect"],
+                **{k: tier_times[g][k] for k in keys}}
+               for g in ("f16", "int8")},
         }})
     kernels += lm_phases(cuda_ms)
     emit({"kernels": kernels})

@@ -7,8 +7,10 @@ same way).  ``pipeline_config_from_reference`` takes
 this module never imports the reference) and builds the port's config.
 
 For the LM stack, ``model_config_from_reference`` does the same for a
-``ModelConfig``, and ``lm_params_from_reference`` takes the reference's
-parameter pytree as numpy arrays.
+``ModelConfig``, ``lm_params_from_reference`` takes the reference's
+parameter pytree as numpy arrays, and
+``lm_quantized_params_from_reference`` its ``quantize_weights_int8``
+trees (int8 values and scales).
 """
 
 from __future__ import annotations
@@ -90,3 +92,36 @@ def lm_params_from_reference(cfg: ModelConfig, params) -> dict:
                              f"{np.shape(given[path])} != {spec.shape}")
     return layers.tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)), params)
+
+
+def lm_quantized_params_from_reference(cfg: ModelConfig, qs: dict) -> dict:
+    """The reference's ``quantize_weights_int8`` output, ``{"q": values,
+    "s": scales}`` as nested dicts of numpy arrays, as the port's.
+
+    The values take the parameters' own layout (checked against
+    ``param_specs(cfg)`` as :func:`lm_params_from_reference` checks them);
+    each scale must broadcast over its leaf: one value per output column,
+    kept in every other axis, for a floating leaf of two or more axes, and
+    ``()`` for the rest.
+    """
+    q = lm_params_from_reference(cfg, qs["q"])
+    s = layers.tree_map(
+        lambda a: torch.from_numpy(np.array(a, dtype=np.float32, copy=True)),
+        qs["s"])
+    scales = dict(layers.tree_items(s))
+    specs = dict(layers.tree_items(param_specs(cfg)))
+    if scales.keys() != specs.keys():
+        raise ValueError(
+            f"scale tree differs: missing {sorted(specs.keys() - scales)}, "
+            f"unexpected {sorted(scales.keys() - specs)}")
+    for path, spec in specs.items():
+        per_column = spec.dtype.startswith(("float", "bfloat")) and len(
+            spec.shape) > 1
+        want = ((1,) * (len(spec.shape) - 1) + spec.shape[-1:]
+                if per_column else ())
+        got = scales.get(path)
+        if got is None or tuple(got.shape) != tuple(want):
+            raise ValueError(f"{'/'.join(path)}: scale shape "
+                             f"{None if got is None else tuple(got.shape)} "
+                             f"!= {tuple(want)}")
+    return {"q": q, "s": s}

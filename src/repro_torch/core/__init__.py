@@ -24,7 +24,10 @@ from .metrics import (  # noqa: F401
 )
 from .pipeline import DetectionResult, LineDetector, PipelineConfig  # noqa: F401
 from .profiling import PhaseProfiler, StageCost, line_detection_costs  # noqa: F401
-from .quantize import Quantized, quantize_frames  # noqa: F401
+from .quantize import (  # noqa: F401
+    Quantized, dequantize, quantize, quantize_frames, quantize_weights_int8,
+    quantized_matmul,
+)
 from .tracking import (  # noqa: F401
     LaneTracker, Track, TrackedFrame, TrackerConfig, TrackingPipeline,
     merge_peaks, signed_residual, tracks_as_peaks, wrap_canonical,

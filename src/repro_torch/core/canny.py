@@ -152,17 +152,17 @@ def _gradients(image: torch.Tensor, cfg: CannyConfig):
         return nr, gxy[..., 0, :, :], gxy[..., 1, :, :]
 
     if cfg.grad_dtype == "int8":
-        from .quantize import quantize_frames
+        from .quantize import _div, quantize_frames
 
         q = quantize_frames(image)
+        c = _div(q.scale, GAUSS_NORM)   # one rounding on either device
         if cfg.fused:
             out = _conv(q.values, masks[0], cfg)
-            s = q.scale / GAUSS_NORM
             return tuple(
-                out[..., k, :, :].to(torch.float32) * s for k in range(3)
+                out[..., k, :, :].to(torch.float32) * c for k in range(3)
             )
         nr_q = _conv(q.values, masks[0], cfg)[..., 0, :, :]
-        nr = nr_q.to(torch.float32) * (q.scale / GAUSS_NORM)
+        nr = nr_q.to(torch.float32) * c
         q2 = quantize_frames(nr)
         gxy = _conv(q2.values, masks[1], cfg)
         return (nr, gxy[..., 0, :, :].to(torch.float32) * q2.scale,

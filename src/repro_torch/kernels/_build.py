@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = ("conv2d", "hough_vote", "fused_detect", "flash_attention",
-           "ssd_scan")
+           "ssd_scan", "tiled_matmul")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

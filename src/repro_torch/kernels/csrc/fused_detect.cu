@@ -1,5 +1,6 @@
 // Fused detection front end: Canny -> edge threshold -> rho-corridor filter
-// -> raster-order compaction, in one C entry (three short kernels).
+// -> raster-order compaction, in one C entry (three short kernels, and a
+// pre-pass for the int8 gradient tier).
 //
 // Replaces the TPU kernel repro/kernels/fused_detect.py::fused_detect (body
 // _fused_kernel).  The TPU kernel holds one whole frame in VMEM and runs the
@@ -17,7 +18,7 @@
 // Sobel pads nr, not the image), the magnitude (NMS and the border clear),
 // and the strong/weak bits (the dilation's zero shift).
 //
-// The three kernels:
+// The three kernels (after the int8 tier's pre-pass):
 //   1. canny_tile_kernel: one block per tile; writes one 32-bit keep mask
 //      per (row, tile column) segment, a warp ballot over a tile row;
 //   2. scan_kernel: one block per frame; the exclusive prefix sum of the
@@ -39,6 +40,18 @@
 // reference's K=2 dot does on the CPU, x*c and y*s each rounded, then one
 // rounded add.
 //
+// The gradient tiers (CannyConfig.grad_dtype) take the same route.  f16:
+// the frame cast to f16, each conv an __hfma chain in conv2d.cu's tap
+// order, nr kept in f16, the gradients upcast to f32 before the magnitude.
+// int8: the frame quantized per frame (round(v / s1) half to even, clipped),
+// integer convs, and canny.py's dequantize / requantize in its order.  Its
+// two scales are frame-wide, so no tile can start before they are known:
+// a pre-pass reduces max|image| per frame (s1), and, for the Gauss + Sobel
+// masks, max|nr_q| of the integer Gauss conv of the quantized frame, which
+// gives s2 = max(fl(max|nr_q| * fl(s1 / 159)), 1e-12) / 127 exactly (the
+// reference's amax(|nr|), since multiplying by a positive f32 is monotone).
+// The maxima stay on the card; each tile block derives the scales itself.
+//
 // What bounds it on this card: per pixel about 90 f32 operations of conv
 // and magnitude against 4 bytes of image read, so the f32 rate, not the
 // memory, is the floor (about 13 us for 720x1280x8).  This first design
@@ -47,6 +60,7 @@
 // runs one block per frame.  Wider tiles, TMA loads and a single-pass
 // decoupled look-back scan are later work.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +71,7 @@ constexpr int BLOCK_Y = 8;    // warps per block
 constexpr int NTHREADS = TILE * BLOCK_Y;
 constexpr int SCAN_THREADS = 1024;
 constexpr int SCATTER_THREADS = 256;
+constexpr int PRE_THREADS = 256;
 constexpr int GAUSS_NORM = 159;
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on Hopper
 
@@ -94,18 +109,31 @@ __host__ __device__ inline size_t smem_bytes(int iters, bool paper, bool fused) 
   return b + 2 * align16(ss * ss);
 }
 
+// The gradient tiers (CannyConfig): each stage's arithmetic type.
+//   F32: the float pipeline; INT: the paper's integer rewrite
+//   (integer=True); F16: grad_dtype="f16", the convs in f16 with __hfma;
+//   I8: grad_dtype="int8", the convs on per-frame int8 quantized values
+//   in int32, dequantized to f32 between the stages.
+enum Tier { T_F32 = 0, T_INT = 1, T_F16 = 2, T_I8 = 3 };
+template <int TIER> struct TierTypes {     // F32
+  using Conv = float;                      // image, masks, conv sums, nr
+  using Mag = float;                       // gradients and magnitude
+};
+template <> struct TierTypes<T_INT> { using Conv = int32_t; using Mag = int32_t; };
+template <> struct TierTypes<T_F16> { using Conv = __half; using Mag = float; };
+template <> struct TierTypes<T_I8> { using Conv = int32_t; using Mag = float; };
+
+template <typename T> __device__ __forceinline__ T zero() { return T(0); }
+template <> __device__ __forceinline__ __half zero<__half>() { return __float2half(0.0f); }
+
 __device__ __forceinline__ float mac(float acc, float m, float v) {
   return __fmaf_rn(m, v, acc);
 }
 __device__ __forceinline__ int32_t mac(int32_t acc, int32_t m, int32_t v) {
   return acc + m * v;
 }
-
-template <typename Acc> __device__ __forceinline__ Acc from_image(float v);
-template <> __device__ __forceinline__ float from_image<float>(float v) { return v; }
-// torch's f32 -> int32 cast truncates toward zero
-template <> __device__ __forceinline__ int32_t from_image<int32_t>(float v) {
-  return static_cast<int32_t>(v);
+__device__ __forceinline__ __half mac(__half acc, __half m, __half v) {
+  return __hfma(m, v, acc);  // conv2d.cu's f16 chain, tap for tap
 }
 
 __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {  // b > 0
@@ -114,9 +142,64 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {  // b > 0
   return q;
 }
 
-// The integer rewrite's "// GAUSS_NORM" after a conv; identity in f32.
-__device__ __forceinline__ float norm_out(float v) { return v; }
-__device__ __forceinline__ int32_t norm_out(int32_t v) { return floordiv(v, GAUSS_NORM); }
+// quantize_frames on one value: round(v / s) half to even, clipped to int8
+__device__ __forceinline__ int32_t quantize8(float v, float s) {
+  return (int32_t)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -128.0f), 127.0f);
+}
+
+// core/quantize.py's scale: max(amax, 1e-12) / 127, one rounding
+__device__ __forceinline__ float scale8(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+}
+
+// The int8 tier's per-frame scales, in canny.py's order: s1 of the image,
+// c1 = s1 / 159 (the Gauss's dequantization), s2 of the Gauss output.
+// max|nr| is max|nr_q| * c1 rounded once, since x -> fl(x * c1) is monotone.
+struct Scales {
+  float s1, c1, s2;
+};
+
+__device__ __forceinline__ Scales frame_scales(const uint32_t* amax_bits, const int32_t* nr_max,
+                                               int n) {
+  Scales sc;
+  sc.s1 = scale8(__uint_as_float(amax_bits[n]));
+  sc.c1 = __fdiv_rn(sc.s1, (float)GAUSS_NORM);
+  sc.s2 = nr_max ? scale8(__fmul_rn((float)nr_max[n], sc.c1)) : 0.0f;
+  return sc;
+}
+
+// A frame pixel as the tier's conv input: f32 as it is, the integer
+// rewrite's truncating int32 cast, the f16 cast (to nearest), or the int8
+// quantization at the frame's scale.
+template <int TIER>
+__device__ __forceinline__ typename TierTypes<TIER>::Conv from_image(float v, const Scales& sc) {
+  if constexpr (TIER == T_F32) return v;
+  else if constexpr (TIER == T_INT) return static_cast<int32_t>(v);
+  else if constexpr (TIER == T_F16) return __float2half_rn(v);
+  else return quantize8(v, sc.s1);
+}
+
+// The Gauss output as the Sobel's input: the integer rewrite's "// 159",
+// or the int8 tier's dequantize (nr = nr_q * c1) and requantize at s2.
+template <int TIER>
+__device__ __forceinline__ typename TierTypes<TIER>::Conv gauss_out(
+    typename TierTypes<TIER>::Conv acc, const Scales& sc) {
+  if constexpr (TIER == T_INT) return floordiv(acc, GAUSS_NORM);
+  else if constexpr (TIER == T_I8) return quantize8(__fmul_rn((float)acc, sc.c1), sc.s2);
+  else return acc;
+}
+
+// A gradient sum as the magnitude's input: f16 upcast to f32, the int8
+// tier dequantized (the fused masks by c1, the Sobel by s2), the integer
+// rewrite's fused masks floored "// 159".
+template <int TIER, bool FUSED>
+__device__ __forceinline__ typename TierTypes<TIER>::Mag grad_out(
+    typename TierTypes<TIER>::Conv acc, const Scales& sc) {
+  if constexpr (TIER == T_INT) return FUSED ? floordiv(acc, GAUSS_NORM) : acc;
+  else if constexpr (TIER == T_F16) return __half2float(acc);
+  else if constexpr (TIER == T_I8) return __fmul_rn((float)acc, FUSED ? sc.c1 : sc.s2);
+  else return acc;
+}
 
 // |G| and the direction bin (0: E-W pair, 1: NE-SW, 2: N-S, 3: NW-SE).
 __device__ __forceinline__ float magnitude(float gx, float gy, int* dir) {
@@ -153,14 +236,19 @@ __device__ __forceinline__ bool in_corridor(const float* __restrict__ cor, int n
 
 // Phase 1.  Bits of the s-planes: 1 = strong, 2 = weak (full) or edge
 // (paper).  m0: the Gauss (1,5,5) or the fused (3,7,7) masks; m1: the
-// Sobel pair (2,3,3) or unused.
-template <typename Acc, bool FUSED, bool PAPER>
+// Sobel pair (2,3,3) or unused; both in the tier's conv type.  amax_bits
+// and nr_max: the int8 tier's per-frame maxima from the pre-pass.
+template <int TIER, bool FUSED, bool PAPER>
 __global__ void __launch_bounds__(NTHREADS)
-canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
-                  const Acc* __restrict__ m1, const float* __restrict__ cor,
-                  int n_cor, uint32_t* __restrict__ keep_bits, int H, int W,
-                  int nseg, float low, float high, float edge_thr, int border,
-                  int iters) {
+canny_tile_kernel(const float* __restrict__ img,
+                  const typename TierTypes<TIER>::Conv* __restrict__ m0,
+                  const typename TierTypes<TIER>::Conv* __restrict__ m1,
+                  const float* __restrict__ cor, int n_cor,
+                  const uint32_t* __restrict__ amax_bits, const int32_t* __restrict__ nr_max,
+                  uint32_t* __restrict__ keep_bits, int H, int W, int nseg, float low,
+                  float high, float edge_thr, int border, int iters) {
+  using Conv = typename TierTypes<TIER>::Conv;
+  using Mag = typename TierTypes<TIER>::Mag;
   extern __shared__ __align__(16) unsigned char smem[];
   const Radii R = radii(iters, PAPER);
   const int si = side(R.i), sn = side(R.n), sm = side(R.m), ss = side(R.s);
@@ -169,15 +257,16 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
   constexpr int NM0 = FUSED ? 3 : 1;
   constexpr int NM1 = FUSED ? 0 : 2;
 
+  // every plane is sized for 4-byte values; f16 uses half of its slot
   unsigned char* p = smem;
-  Acc* s_m0 = reinterpret_cast<Acc*>(p);
-  Acc* s_m1 = s_m0 + NM0 * TAPS0;
+  Conv* s_m0 = reinterpret_cast<Conv*>(p);
+  Conv* s_m1 = s_m0 + NM0 * TAPS0;
   p += align16(4 * (FUSED ? 3 * 49 : 25 + 2 * 9));
-  Acc* s_img = reinterpret_cast<Acc*>(p);
+  Conv* s_img = reinterpret_cast<Conv*>(p);
   p += align16(4 * (size_t)si * si);
-  Acc* s_nr = reinterpret_cast<Acc*>(p);
+  Conv* s_nr = reinterpret_cast<Conv*>(p);
   if (!FUSED) p += align16(4 * (size_t)sn * sn);
-  Acc* s_mag = reinterpret_cast<Acc*>(p);
+  Mag* s_mag = reinterpret_cast<Mag*>(p);
   p += align16(4 * (size_t)sm * sm);
   uint8_t* s_dir = p;
   if (!PAPER) p += align16((size_t)sm * sm);
@@ -187,6 +276,8 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
   const int n = blockIdx.z;
   const int x0 = blockIdx.x * TILE, y0 = blockIdx.y * TILE;
   const int tid = threadIdx.y * TILE + threadIdx.x;
+  Scales sc{0.0f, 0.0f, 0.0f};
+  if constexpr (TIER == T_I8) sc = frame_scales(amax_bits, FUSED ? nullptr : nr_max, n);
 
   for (int i = tid; i < NM0 * TAPS0; i += NTHREADS) s_m0[i] = m0[i];
   for (int i = tid; i < NM1 * 9; i += NTHREADS) s_m1[i] = m1[i];
@@ -194,8 +285,8 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
   for (int i = tid; i < si * si; i += NTHREADS) {
     const int r = i / si, c = i - r * si;
     const int y = y0 - R.i + r, x = x0 - R.i + c;
-    Acc v = Acc(0);
-    if (y >= 0 && y < H && x >= 0 && x < W) v = from_image<Acc>(src[(size_t)y * W + x]);
+    Conv v = zero<Conv>();
+    if (y >= 0 && y < H && x >= 0 && x < W) v = from_image<TIER>(src[(size_t)y * W + x], sc);
     s_img[i] = v;
   }
   __syncthreads();
@@ -204,14 +295,14 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
     for (int i = tid; i < sn * sn; i += NTHREADS) {
       const int r = i / sn, c = i - r * sn;
       const int y = y0 - R.n + r, x = x0 - R.n + c;
-      Acc v = Acc(0);
+      Conv v = zero<Conv>();
       if (y >= 0 && y < H && x >= 0 && x < W) {
-        Acc acc = Acc(0);
+        Conv acc = zero<Conv>();
         for (int dy = 0; dy < 5; ++dy) {
-          const Acc* row = s_img + (r + dy) * si + c;
+          const Conv* row = s_img + (r + dy) * si + c;
           for (int dx = 0; dx < 5; ++dx) acc = mac(acc, s_m0[dy * 5 + dx], row[dx]);
         }
-        v = norm_out(acc);
+        v = gauss_out<TIER>(acc, sc);
       }
       s_nr[i] = v;
     }
@@ -223,33 +314,31 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
   for (int i = tid; i < sm * sm; i += NTHREADS) {
     const int r = i / sm, c = i - r * sm;
     const int y = y0 - R.m + r, x = x0 - R.m + c;
-    Acc mag = Acc(0);
+    Mag mag = Mag(0);
     int dir = 0;
     if (y >= 0 && y < H && x >= 0 && x < W) {
-      Acc gx = Acc(0), gy = Acc(0);
+      Conv gx = zero<Conv>(), gy = zero<Conv>();
       if (FUSED) {
         for (int dy = 0; dy < 7; ++dy) {
-          const Acc* row = s_img + (r + dy) * si + c;
+          const Conv* row = s_img + (r + dy) * si + c;
           for (int dx = 0; dx < 7; ++dx) gx = mac(gx, s_m0[TAPS0 + dy * 7 + dx], row[dx]);
         }
         for (int dy = 0; dy < 7; ++dy) {
-          const Acc* row = s_img + (r + dy) * si + c;
+          const Conv* row = s_img + (r + dy) * si + c;
           for (int dx = 0; dx < 7; ++dx) gy = mac(gy, s_m0[2 * TAPS0 + dy * 7 + dx], row[dx]);
         }
-        gx = norm_out(gx);
-        gy = norm_out(gy);
       } else {
         for (int dy = 0; dy < 3; ++dy) {
-          const Acc* row = s_nr + (r + dy) * sn + c;
+          const Conv* row = s_nr + (r + dy) * sn + c;
           for (int dx = 0; dx < 3; ++dx) gx = mac(gx, s_m1[dy * 3 + dx], row[dx]);
         }
         for (int dy = 0; dy < 3; ++dy) {
-          const Acc* row = s_nr + (r + dy) * sn + c;
+          const Conv* row = s_nr + (r + dy) * sn + c;
           for (int dx = 0; dx < 3; ++dx) gy = mac(gy, s_m1[9 + dy * 3 + dx], row[dx]);
         }
       }
-      mag = magnitude(gx, gy, &dir);
-      if (!(y >= border && y < H - border && x >= border && x < W - border)) mag = Acc(0);
+      mag = magnitude(grad_out<TIER, FUSED>(gx, sc), grad_out<TIER, FUSED>(gy, sc), &dir);
+      if (!(y >= border && y < H - border && x >= border && x < W - border)) mag = Mag(0);
     }
     s_mag[i] = mag;
     if (!PAPER) s_dir[i] = (uint8_t)dir;
@@ -264,7 +353,7 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
     uint8_t b = 0;
     if (y >= 0 && y < H && x >= 0 && x < W) {
       const int rr = r + off, cc = c + off;
-      const Acc m = s_mag[rr * sm + cc];
+      const Mag m = s_mag[rr * sm + cc];
       if (PAPER) {
         const bool edge = at_least(m, low);
         b = (uint8_t)((edge && at_least(m, high)) | (edge << 1));
@@ -277,7 +366,7 @@ canny_tile_kernel(const float* __restrict__ img, const Acc* __restrict__ m0,
           default: r1 = rr + 1; c1 = cc + 1; r2 = rr - 1; c2 = cc - 1; break;
         }
         const bool keep = m >= s_mag[r1 * sm + c1] && m >= s_mag[r2 * sm + c2];
-        const Acc sup = keep ? m : Acc(0);
+        const Mag sup = keep ? m : Mag(0);
         const bool strong = at_least(sup, high);
         const bool weak = at_least(sup, low) && !strong;
         b = (uint8_t)(strong | (weak << 1));
@@ -410,14 +499,82 @@ scatter_kernel(const uint32_t* __restrict__ keep_bits, const int32_t* __restrict
   cxy[j * 3 + 2] = 0.0f;
 }
 
-template <typename Acc, bool FUSED, bool PAPER>
-int launch_tiles(const float* img, const void* m0, const void* m1, const float* cor,
-                 int n_cor, uint32_t* keep_bits, int N, int H, int W, int nseg,
-                 float low, float high, float edge_thr, int border, int iters,
-                 cudaStream_t stream) {
+// Pre-pass of the int8 tier, 1: max|image| of each frame into
+// amax_bits[n], as the bits of a non-negative float (which order as
+// unsigned ints, so atomicMax takes them).
+__global__ void __launch_bounds__(PRE_THREADS)
+frame_amax_kernel(const float* __restrict__ img, uint32_t* __restrict__ amax_bits,
+                  long long hw) {
+  const float* src = img + (size_t)blockIdx.y * hw;
+  float m = 0.0f;
+  for (long long i = (long long)blockIdx.x * PRE_THREADS + threadIdx.x; i < hw;
+       i += (long long)gridDim.x * PRE_THREADS)
+    m = fmaxf(m, fabsf(src[i]));
+  __shared__ float warp_max[PRE_THREADS / 32];
+  for (int d = 16; d; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < PRE_THREADS / 32; ++k) m = fmaxf(m, warp_max[k]);
+    atomicMax(amax_bits + blockIdx.y, __float_as_uint(m));
+  }
+}
+
+// Pre-pass of the int8 tier, 2 (Gauss + Sobel masks only): max|nr_q| of
+// each frame, nr_q the integer Gauss conv of the frame quantized at its
+// scale s1, one 32x32 tile a block, into nr_max[n].
+__global__ void __launch_bounds__(NTHREADS)
+gauss_qmax_kernel(const float* __restrict__ img, const int32_t* __restrict__ gauss,
+                  const uint32_t* __restrict__ amax_bits, int32_t* __restrict__ nr_max,
+                  int H, int W) {
+  constexpr int S = TILE + 4;
+  __shared__ int32_t s_img[S * S];
+  __shared__ int32_t s_g[25];
+  __shared__ int32_t s_max[BLOCK_Y];
+  const int n = blockIdx.z, x0 = blockIdx.x * TILE, y0 = blockIdx.y * TILE;
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  const float s1 = scale8(__uint_as_float(amax_bits[n]));
+  if (tid < 25) s_g[tid] = gauss[tid];
+  const float* src = img + (size_t)n * H * W;
+  for (int i = tid; i < S * S; i += NTHREADS) {
+    const int r = i / S, c = i - r * S;
+    const int y = y0 - 2 + r, x = x0 - 2 + c;
+    s_img[i] = (y >= 0 && y < H && x >= 0 && x < W) ? quantize8(src[(size_t)y * W + x], s1) : 0;
+  }
+  __syncthreads();
+  int32_t m = 0;
+  const int x = x0 + threadIdx.x;
+  for (int ry = threadIdx.y; ry < TILE; ry += BLOCK_Y) {
+    if (y0 + ry >= H || x >= W) break;
+    int32_t acc = 0;
+    for (int dy = 0; dy < 5; ++dy)
+      for (int dx = 0; dx < 5; ++dx) acc += s_g[dy * 5 + dx] * s_img[(ry + dy) * S + threadIdx.x + dx];
+    m = max(m, abs(acc));
+  }
+  for (int d = 16; d; d >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, d));
+  if (threadIdx.x == 0) s_max[threadIdx.y] = m;
+  __syncthreads();
+  if (tid == 0) {
+    for (int k = 1; k < BLOCK_Y; ++k) m = max(m, s_max[k]);
+    atomicMax(nr_max + n, m);
+  }
+}
+
+#define FD_TILE_PARAMS                                                                \
+  const float *img, const void *m0, const void *m1, const float *cor, int n_cor,      \
+      const uint32_t *amax_bits, const int32_t *nr_max, uint32_t *keep_bits, int N,   \
+      int H, int W, int nseg, float low, float high, float edge_thr, int border,      \
+      int iters, cudaStream_t stream
+#define FD_TILE_ARGS                                                                  \
+  img, m0, m1, cor, n_cor, amax_bits, nr_max, keep_bits, N, H, W, nseg, low, high,    \
+      edge_thr, border, iters, stream
+
+template <int TIER, bool FUSED, bool PAPER>
+int launch_tiles(FD_TILE_PARAMS) {
+  using Conv = typename TierTypes<TIER>::Conv;
   const size_t smem = smem_bytes(iters, PAPER, FUSED);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = canny_tile_kernel<Acc, FUSED, PAPER>;
+  auto kernel = canny_tile_kernel<TIER, FUSED, PAPER>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -425,8 +582,36 @@ int launch_tiles(const float* img, const void* m0, const void* m1, const float* 
   }
   const dim3 grid(nseg, (H + TILE - 1) / TILE, N);
   kernel<<<grid, dim3(TILE, BLOCK_Y), smem, stream>>>(
-      img, static_cast<const Acc*>(m0), static_cast<const Acc*>(m1), cor, n_cor,
-      keep_bits, H, W, nseg, low, high, edge_thr, border, iters);
+      img, static_cast<const Conv*>(m0), static_cast<const Conv*>(m1), cor, n_cor, amax_bits,
+      nr_max, keep_bits, H, W, nseg, low, high, edge_thr, border, iters);
+  return (int)cudaGetLastError();
+}
+
+template <int TIER>
+int launch_tier(bool fused, bool paper, FD_TILE_PARAMS) {
+  if (fused)
+    return paper ? launch_tiles<TIER, true, true>(FD_TILE_ARGS)
+                 : launch_tiles<TIER, true, false>(FD_TILE_ARGS);
+  return paper ? launch_tiles<TIER, false, true>(FD_TILE_ARGS)
+               : launch_tiles<TIER, false, false>(FD_TILE_ARGS);
+}
+
+// The int8 tier's per-frame maxima, on the stream ahead of the tiles.
+int int8_prepass(const float* img, const void* m0, bool fused, uint32_t* amax_bits,
+                 int32_t* nr_max, int N, int H, int W, int nseg, cudaStream_t stream) {
+  if (!amax_bits || (!fused && !nr_max)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(amax_bits, 0, sizeof(uint32_t) * N, stream);
+  if (e != cudaSuccess) return (int)e;
+  const long long hw = (long long)H * W;
+  const long long per_frame = (hw + PRE_THREADS - 1) / PRE_THREADS;
+  const int bx = (int)(per_frame < 64 ? per_frame : 64);
+  frame_amax_kernel<<<dim3(bx, N), PRE_THREADS, 0, stream>>>(img, amax_bits, hw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || fused) return (int)e;
+  e = cudaMemsetAsync(nr_max, 0, sizeof(int32_t) * N, stream);
+  if (e != cudaSuccess) return (int)e;
+  gauss_qmax_kernel<<<dim3(nseg, (H + TILE - 1) / TILE, N), dim3(TILE, BLOCK_Y), 0, stream>>>(
+      img, static_cast<const int32_t*>(m0), amax_bits, nr_max, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -434,31 +619,32 @@ int launch_tiles(const float* img, const void* m0, const void* m1, const float* 
 
 extern "C" {
 
-// img: f32 (N, H, W); m0/m1: the config's conv masks on the card, f32 or
-// int32 (integer != 0), m1 NULL for the fused 7x7 set; cor: f32 (n_cor, 4)
-// rows [cos, sin, rho_lo, rho_hi] or NULL (n_cor 0); keep_bits/offsets:
-// scratch of N * H * ceil(W / 32) words; cxy (N, max_edges, 3), cw
-// (N, max_edges), counts (N,) are written in full.
-int fused_detect(const float* img, const void* m0, const void* m1, int integer,
-                 int fused, int paper, const float* cor, int n_cor,
-                 uint32_t* keep_bits, int32_t* offsets, float* cxy, float* cw,
-                 int32_t* counts, int N, int H, int W, int max_edges, float low,
-                 float high, float edge_thr, int border, int iters,
-                 cudaStream_t stream) {
+// img: f32 (N, H, W); tier: 0 f32, 1 the integer rewrite, 2 f16, 3 int8
+// (Tier); m0/m1: the config's conv masks on the card in the tier's conv
+// type (f32, int32, f16, int32), m1 NULL for the fused 7x7 set; cor: f32
+// (n_cor, 4) rows [cos, sin, rho_lo, rho_hi] or NULL (n_cor 0);
+// keep_bits/offsets: scratch of N * H * ceil(W / 32) words; amax_bits and
+// nr_max: scratch of N words for the int8 tier (nr_max unused with the
+// fused masks), NULL otherwise; cxy (N, max_edges, 3), cw (N, max_edges),
+// counts (N,) are written in full.
+int fused_detect(const float* img, const void* m0, const void* m1, int tier, int fused,
+                 int paper, const float* cor, int n_cor, uint32_t* keep_bits,
+                 int32_t* offsets, uint32_t* amax_bits, int32_t* nr_max, float* cxy,
+                 float* cw, int32_t* counts, int N, int H, int W, int max_edges, float low,
+                 float high, float edge_thr, int border, int iters, cudaStream_t stream) {
   if (iters < 0) iters = 0;
   const int nseg = (W + TILE - 1) / TILE;
   int rc;
-#define FD_TILES(ACC, FU, PA)                                                   \
-  launch_tiles<ACC, FU, PA>(img, m0, m1, cor, n_cor, keep_bits, N, H, W, nseg, \
-                            low, high, edge_thr, border, iters, stream)
-  if (integer) {
-    if (fused) rc = paper ? FD_TILES(int32_t, true, true) : FD_TILES(int32_t, true, false);
-    else rc = paper ? FD_TILES(int32_t, false, true) : FD_TILES(int32_t, false, false);
-  } else {
-    if (fused) rc = paper ? FD_TILES(float, true, true) : FD_TILES(float, true, false);
-    else rc = paper ? FD_TILES(float, false, true) : FD_TILES(float, false, false);
+  switch (tier) {
+    case T_F32: rc = launch_tier<T_F32>(fused, paper, FD_TILE_ARGS); break;
+    case T_INT: rc = launch_tier<T_INT>(fused, paper, FD_TILE_ARGS); break;
+    case T_F16: rc = launch_tier<T_F16>(fused, paper, FD_TILE_ARGS); break;
+    case T_I8:
+      rc = int8_prepass(img, m0, fused, amax_bits, nr_max, N, H, W, nseg, stream);
+      if (rc == 0) rc = launch_tier<T_I8>(fused, paper, FD_TILE_ARGS);
+      break;
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef FD_TILES
   if (rc != 0) return rc;
   const int S = H * nseg;
   scan_kernel<<<N, SCAN_THREADS, 0, stream>>>(keep_bits, offsets, counts, S, max_edges);

@@ -33,8 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_detect")
     lib.fused_detect.argtypes = [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
-                                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I,
-                                 _P]
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                                 _I, _I, _P]
     lib.fused_detect.restype = _I
     lib.fused_detect_smem_bytes.argtypes = [_I, _I, _I]
     lib.fused_detect_smem_bytes.restype = ctypes.c_size_t
@@ -63,16 +63,30 @@ def smem_bytes(iters: int, paper: bool, fused: bool) -> int:
     return b + 2 * _align16(ss * ss)
 
 
+# the C entry's tier codes: f32, the integer rewrite, f16, int8
+_TIERS = {"f32": 0, "f16": 2, "int8": 3}
+
+
+def tier(cfg) -> int:
+    """The kernel's arithmetic tier for a ``CannyConfig``; raises as
+    ``core.canny`` does on a config no path takes."""
+    if cfg.grad_dtype not in _TIERS:
+        raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r}")
+    if cfg.integer:
+        if cfg.grad_dtype != "f32":
+            raise ValueError(
+                "grad_dtype tiers apply to the float pipeline; the integer "
+                "rewrite (integer=True) is its own arithmetic mode")
+        return 1
+    return _TIERS[cfg.grad_dtype]
+
+
 def check_config(cfg) -> None:
     """Raise on a ``CannyConfig`` the kernel does not take, before any work
-    on the card: the f16 and int8 gradient tiers, and a hysteresis halo
-    whose tile does not fit shared memory.  The plain version covers them
-    on the CPU."""
-    if cfg.grad_dtype != "f32":
-        raise NotImplementedError(
-            f"the fused_detect kernel has no grad_dtype={cfg.grad_dtype!r} "
-            "tier on the card (the int8 tier needs a frame-wide quantization "
-            "scale before any tile starts); see ROADMAP.md")
+    on the card: a hysteresis halo whose tile does not fit shared memory
+    (the plain version covers it on the CPU), or a config no path takes.
+    Every gradient tier (f32, f16, int8) and the integer rewrite run."""
+    tier(cfg)
     need = smem_bytes(cfg.hysteresis_iters, cfg.variant == "paper", cfg.fused)
     if need > MAX_SMEM:
         raise NotImplementedError(
@@ -120,17 +134,23 @@ def fused_detect(image: torch.Tensor, corridors: torch.Tensor | None = None,
     dev = image.device
     bits = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
     offsets = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
+    code = tier(cfg)
+    # the int8 tier's per-frame maxima (max|image|, max|Gauss conv|)
+    maxima = (torch.empty((2, N), dtype=torch.int32, device=dev)
+              if code == _TIERS["int8"] else None)
     cxy = torch.empty((N, max_edges, 3), dtype=torch.float32, device=dev)
     cw = torch.empty((N, max_edges), dtype=torch.float32, device=dev)
     counts = torch.empty((N,), dtype=torch.int32, device=dev)
     if N and H and W:
         lib = _lib()
         rc = lib.fused_detect(
-            img.data_ptr(), masks[0].data_ptr(), m1, int(cfg.integer),
+            img.data_ptr(), masks[0].data_ptr(), m1, code,
             int(cfg.fused), int(cfg.variant == "paper"),
             None if cor is None else cor.data_ptr(),
             0 if cor is None else cor.shape[0],
-            bits.data_ptr(), offsets.data_ptr(), cxy.data_ptr(),
+            bits.data_ptr(), offsets.data_ptr(),
+            None if maxima is None else maxima[0].data_ptr(),
+            None if maxima is None else maxima[1].data_ptr(), cxy.data_ptr(),
             cw.data_ptr(), counts.data_ptr(), N, H, W, max_edges,
             cfg.low, cfg.high, edge_threshold, cfg.border,
             cfg.hysteresis_iters, torch.cuda.current_stream(dev).cuda_stream,

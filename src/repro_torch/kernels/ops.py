@@ -17,6 +17,10 @@ CPU dispatch (``repro/kernels/ops.py``) so that both packages take the same
 arithmetic on the host: dense attention up to a kv length of 2048 and the
 blockwise form above; the sequential SSD oracle up to L = 64 and the
 chunked form (``chunk``, default 128) above.
+
+``tiled_matmul`` (under ``core.quantize.quantized_matmul``) drops the
+reference's ``impl`` and ``bm``/``bn``/``bk`` knobs, as ``HoughConfig``
+dropped ``impl``: the device picks the path and the kernel its tile.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from . import fused_detect as _fused
 from . import hough_vote as _vote
 from . import ref
 from . import ssd_scan as _ssd
+from . import tiled_matmul as _mm
 from .hough_vote import compact_edges  # noqa: F401  (re-exported)
 
 
@@ -43,7 +48,7 @@ def _on_card(t: torch.Tensor) -> bool:
 
 _KERNEL_MODULES = {"conv2d_gemm": _conv, "fused_detect": _fused,
                    "hough_vote": _vote, "flash_attention": _attn,
-                   "ssd_scan": _ssd}
+                   "ssd_scan": _ssd, "tiled_matmul": _mm}
 
 
 def launch_counts() -> dict[str, int]:
@@ -53,6 +58,15 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+
+
+def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *,
+                 out_dtype=None) -> torch.Tensor:
+    """(M, K) @ (K, N): int8 x int8 -> int32 exact, floats accumulated in
+    f32 -> ``out_dtype`` (default ``x.dtype``)."""
+    if _on_card(x):
+        return _mm.tiled_matmul(x, y, out_dtype=out_dtype)
+    return ref.tiled_matmul(x, y, out_dtype=out_dtype)
 
 
 def conv2d_gemm(image: torch.Tensor, masks: torch.Tensor, *,

@@ -21,6 +21,27 @@ import torch.nn.functional as F
 from .tiles import acc_dtype as _acc_dtype
 
 
+def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, out_dtype=None
+                 ) -> torch.Tensor:
+    """``x @ y`` for (M, K) @ (K, N): integers accumulate exactly (int32
+    out by default), floats in f32 (``x.dtype`` out by default).
+
+    The operands are upcast first.  On the CPU ``torch.mm`` of two int8
+    tensors returns int8 and wraps, so integers go through int64 there; the
+    card has no integer ``mm``, so they go through float64, which is exact
+    while every partial sum stays below 2^53 (int8 up to K = 2^38).  The
+    int64 -> int32 cast wraps as the reference's int32 accumulator does.
+    """
+    integer = not x.dtype.is_floating_point
+    if out_dtype is None:
+        out_dtype = torch.int32 if integer else x.dtype
+    if integer:
+        wide = torch.float64 if x.is_cuda else torch.int64
+        acc = torch.mm(x.to(wide), y.to(wide)).to(torch.int64)
+        return acc.to(out_dtype)
+    return torch.mm(x.to(torch.float32), y.to(torch.float32)).to(out_dtype)
+
+
 def _same_pad(image: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return F.pad(image, (kw // 2, kw // 2, kh // 2, kh // 2))
 

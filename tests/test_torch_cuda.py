@@ -29,6 +29,7 @@ from repro_torch.kernels import conv2d_gemm as conv_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fused_detect as fused_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels import tiled_matmul as mm_mod  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.serve import Engine, Request  # noqa: E402
 
@@ -192,11 +193,98 @@ def test_fused_kernel_smem_formula_matches_the_source(card):
 
 
 @pytest.mark.cuda
-def test_fused_kernel_refuses_low_precision_tiers_on_card(card):
-    for cfg in (CannyConfig(grad_dtype="f16"), CannyConfig(grad_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.fused_detect(torch.zeros((2, 40, 50), device=card), cfg=cfg,
-                             edge_threshold=250.0, max_edges=64)
+@pytest.mark.parametrize("cfg", [
+    CannyConfig(grad_dtype="f16"), CannyConfig(grad_dtype="f16", fused=True),
+    CannyConfig(grad_dtype="int8"), CannyConfig(grad_dtype="int8", fused=True),
+    CannyConfig(grad_dtype="int8", variant="paper"),
+], ids=["f16", "f16-fused", "int8", "int8-fused", "int8-paper"])
+@pytest.mark.parametrize("shape", [(3, 45, 70), (1, 21, 19), (2, 120, 160)])
+def test_fused_kernel_gradient_tiers_bit_exact_on_card(card, rng, cfg, shape):
+    """The f16 and int8 tiers equal the card's staged path bit for bit
+    (the conv kernel's f16 chains; the int8 scales from the pre-pass), and
+    int8 also the plain version on a CPU copy (integer convs are exact in
+    any order).  Frames include a dark one, so each keeps its own scale."""
+    if shape[1] == 120:
+        x = _t(scenario_batch(["converging", "night"], 120, 160)[0])
+    else:
+        x = _t(rng.uniform(0, 255, shape).astype(np.float32))
+    x[0] *= 0.25
+    for cor, max_edges in ((None, 4096),
+                           (np.array([[0.6, 0.8, 5.0, 40.0]], np.float32),
+                            64)):
+        c = None if cor is None else _t(cor)
+        before = fused_mod.launches
+        got = fused_mod.fused_detect(x.to(card), None if c is None
+                                     else c.to(card), cfg=cfg,
+                                     edge_threshold=250.0,
+                                     max_edges=max_edges)
+        torch.cuda.synchronize()
+        assert fused_mod.launches == before + 1
+        w = ref.fused_weights(x.to(card), cfg=cfg, edge_threshold=250.0,
+                              corridors=None if c is None else c.to(card))
+        staged = ops.compact_edges(_device_raster(*shape[1:], card), w,
+                                   max_edges=max_edges)
+        for a, s in zip(got, staged):
+            assert torch.equal(a, s)
+        if cfg.grad_dtype == "int8":
+            want = ref.fused_detect(x, cfg=cfg, edge_threshold=250.0,
+                                    max_edges=max_edges, corridors=c)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("m,k,n", [(33, 129, 65), (100, 70, 50), (4, 1, 7),
+                                   (4, 300, 130), (64, 64, 64)])
+def test_matmul_kernel_matches_plain_on_card(card, rng, dtype, m, k, n):
+    """int8 bit-exact with the plain version (and the CPU's).  Floats: the
+    kernel's f32 sums within twice the plain f32 product's own error
+    against a float64 product, relative to |x| @ |y|; a bf16 or f16 output
+    is its f32 sum rounded once to nearest even."""
+    if dtype == "int8":
+        x = _t(rng.integers(-128, 128, (m, k)).astype(np.int8))
+        y = _t(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    else:
+        x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(
+            getattr(torch, dtype))
+        y = _t(rng.normal(size=(k, n)).astype(np.float32)).to(
+            getattr(torch, dtype))
+    x, y = x.to(card), y.to(card)
+    before = mm_mod.launches
+    got = mm_mod.tiled_matmul(x, y)
+    torch.cuda.synchronize()
+    assert mm_mod.launches == before + 1
+    want = ref.tiled_matmul(x, y)
+    assert got.dtype == want.dtype == (torch.int32 if dtype == "int8"
+                                       else x.dtype)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(), y.cpu()))
+        return
+    f32 = torch.float32
+    k32 = mm_mod.tiled_matmul(x, y, out_dtype=f32)
+    p32 = ref.tiled_matmul(x, y, out_dtype=f32)
+    x64, y64 = x.double(), y.double()
+    exact = x64 @ y64
+    scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
+    err_k = float(((k32.double() - exact).abs() / scale).max())
+    err_p = float(((p32.double() - exact).abs() / scale).max())
+    assert err_k <= 2.0 * err_p + 1e-12, (err_k, err_p)
+    assert torch.equal(got, k32.to(x.dtype))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_on_card_equals_cpu(card, rng):
+    from repro_torch.core import quantized_matmul
+
+    x = _t(rng.normal(size=(99, 640)).astype(np.float32))
+    y = _t((rng.normal(size=(640, 200)) * 0.02).astype(np.float32))
+    ops.reset_launch_counts()
+    got = quantized_matmul(x.to(card), y.to(card))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tiled_matmul"] == 1
+    assert torch.equal(got.cpu(), quantized_matmul(x, y))
 
 
 @pytest.mark.cuda

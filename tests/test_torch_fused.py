@@ -120,7 +120,8 @@ def test_fused_detect_plain_bit_exact_with_reference(frames, corridors,
 ], ids=["integer", "fused-masks", "paper", "iters2-border0", "f16", "int8"])
 def test_fused_detect_plain_configs(frames, cfg):
     """Every Canny configuration of kernel A's contract, against the
-    reference's oracle (the f16 and int8 tiers on the CPU only)."""
+    reference's oracle (the kernel's own tiers run on the card in
+    tests/test_torch_cuda.py)."""
     imgs, truths = frames
     cor = _real_corridors(truths)
     got = ops.fused_detect(_t(imgs), _t(cor), cfg=cfg, edge_threshold=250.0,
@@ -320,7 +321,21 @@ def test_fused_plan_rules(frames):
     CannyConfig(hysteresis_iters=60),
 ], ids=["f16", "int8", "int8-fused", "halo-too-large"])
 def test_kernel_refuses_configs_before_touching_the_card(cfg):
+    """The kernel takes every gradient tier, each within the shared memory
+    a block may use; it refuses only a hysteresis halo whose tile does not
+    fit, before it touches a device."""
     img = torch.zeros((2, 40, 50))
+    need = fused_mod.smem_bytes(cfg.hysteresis_iters, cfg.variant == "paper",
+                                cfg.fused)
+    if cfg.hysteresis_iters <= 8:
+        fused_mod.check_config(cfg)          # admitted
+        assert need <= fused_mod.MAX_SMEM
+        assert fused_mod.tier(cfg) == {"f16": 2, "int8": 3}[cfg.grad_dtype]
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_mod.fused_detect(img, cfg=cfg, edge_threshold=250.0,
+                                   max_edges=64)
+        return
+    assert need > fused_mod.MAX_SMEM
     with pytest.raises(NotImplementedError):
         fused_mod.fused_detect(img, cfg=cfg, edge_threshold=250.0,
                                max_edges=64)
@@ -351,4 +366,4 @@ def test_cpu_fused_path_launches_no_kernel(frames):
                 HoughConfig(compact=True, max_edges=512))
     assert ops.launch_counts() == {"conv2d_gemm": 0, "fused_detect": 0,
                                    "hough_vote": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "tiled_matmul": 0}

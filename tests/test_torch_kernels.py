@@ -310,4 +310,4 @@ def test_cpu_dispatch_launches_no_kernel(rng):
                     torch.ones(1, 3, 3))
     assert ops.launch_counts() == {"conv2d_gemm": 0, "fused_detect": 0,
                                    "hough_vote": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "tiled_matmul": 0}
