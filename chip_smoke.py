@@ -29,12 +29,15 @@ computes the same function, the fused plan against the gated staged plan,
 and the tracking loop.
 
 Then the LM slice on zamba2-1.2b at full width (``lm_phases``): the
-attention and SSD kernels against their plain versions, a full-width f32
+attention and SSD kernels against their plain versions (bf16 attention
+on the tensor cores, p split into two bf16 halves), a full-width f32
 cut against the CPU, the full model serving 8 requests through ``Engine``
 in bf16 (and f32), the same traffic on ``quantize_weights_int8`` weights
 dequantized to bf16, and the float -> int rewrite's GEMM
 (``matmul_phases``): the matmul kernel against its plain version and
-``quantized_matmul`` at the model's full-width GEMMs, with times.
+``quantized_matmul`` at the model's full-width GEMMs, with times; the LM
+kernels' times beside SDPA and their bounds, and one attention launch
+profiled (device time, TFLOP/s, registers, blocks an SM).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -92,10 +95,29 @@ def tracker_corridors(truth, n: int, half: float = 25.0):
     return np.asarray(rows, np.float32)
 
 
-def gpu_trace(run, name: str, n_runs: int):
+def one_launch_ms(run) -> float:
+    """Device time of one call of ``run``: CUDA events around it, queued
+    behind a kernel that sleeps ~5 ms so that the host's launch time (up
+    to that) is hidden."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def gpu_trace(run, name: str, n_runs: int, focus=()):
     """Profile ``run`` called ``n_runs`` times (torch.profiler, CPU and
     CUDA activities); every GPU activity of the trace summed by name, the
-    busy time and the span from the first activity to the last."""
+    busy time and the span from the first activity to the last, and for
+    each substring of ``focus`` the calls and ms of the activities whose
+    name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,7 +141,11 @@ def gpu_trace(run, name: str, n_runs: int):
     span_ms = ((max(e["ts"] + e["dur"] for e in gpu)
                 - min(e["ts"] for e in gpu)) / 1e3) if gpu else 0.0
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
+    picked = {f: [d for k, v in by_name.items() if f in k for d in v]
+              for f in focus}
     return {"gpu_activities": len(gpu), "device_busy_ms": busy_ms,
+            "focus": {f: {"calls": len(v), "ms": sum(v)}
+                      for f, v in picked.items()},
             "device_span_ms": span_ms,
             "device_busy_share_of_span": busy_ms / span_ms if span_ms else None,
             "traced_wall_ms": wall_ms,
@@ -168,17 +194,26 @@ def lm_phases(cuda_ms) -> list:
     # attention: 1e-5.  SSD (f32): 1e-4 relative to the chunked plain
     # version at the same chunk, 2e-3 to the sequential oracle
     # (tests/test_kernels.py).
+    # The bf16 kernel runs on the tensor cores with p split in two bf16
+    # halves for PV (attn_mod.FORM); its cases cover D = 8, 16, 128 (D
+    # padded to 16), a ragged Lq, fully masked rows and q scaled by 4.
     checks = []
-    attn_cases = [((1, 32, 32, L, L, 64), True, None, 0, torch.bfloat16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    attn_cases = [((1, 32, 32, L, L, 64), True, None, 0, bf16, 1.0)
                   for L in (127, 513, 1000)]
-    attn_cases += [((1, 32, 8, 300, 700, 80), True, 256, 400, torch.bfloat16),
-                   ((2, 4, 2, 100, 100, 64), True, 24, 0, torch.float32),
-                   ((1, 4, 4, 37, 37, 16), False, None, 0, torch.float32),
-                   ((1, 4, 1, 3, 200, 128), True, None, 197, torch.float32)]
+    attn_cases += [((1, 32, 8, 300, 700, 80), True, 256, 400, bf16, 1.0),
+                   ((1, 8, 8, 37, 37, 8), True, None, 0, bf16, 1.0),
+                   ((1, 8, 2, 37, 200, 16), True, None, 163, bf16, 1.0),
+                   ((1, 4, 4, 24, 16, 128), False, 1, 0, bf16, 1.0),
+                   ((1, 32, 32, 999, 999, 64), True, None, 0, bf16, 4.0),
+                   ((1, 4, 1, 130, 130, 128), True, 64, 0, bf16, 4.0),
+                   ((2, 4, 2, 100, 100, 64), True, 24, 0, f32, 1.0),
+                   ((1, 4, 4, 37, 37, 16), False, None, 0, f32, 1.0),
+                   ((1, 4, 1, 3, 200, 128), True, None, 197, f32, 1.0)]
     attn_err = 0.0
-    for (B, Hq, Hkv, Lq, Lkv, D), causal, window, off, dt in attn_cases:
-        q, k, v = (randn(B, h, L, D, dtype=dt)
-                   for h, L in ((Hq, Lq), (Hkv, Lkv), (Hkv, Lkv)))
+    for (B, Hq, Hkv, Lq, Lkv, D), causal, window, off, dt, qs in attn_cases:
+        q = randn(B, Hq, Lq, D, scale=qs).to(dt)
+        k, v = (randn(B, Hkv, Lkv, D, dtype=dt) for _ in range(2))
         got = attn_mod.flash_attention(q, k, v, causal=causal, window=window,
                                        q_offset=off)
         torch.cuda.synchronize()
@@ -200,8 +235,9 @@ def lm_phases(cuda_ms) -> list:
         attn_err = max(attn_err, err)
         checks.append({"kernel": "flash_attention",
                        "shape": [B, Hq, Hkv, Lq, Lkv, D], "causal": causal,
-                       "window": window, "q_offset": off,
+                       "window": window, "q_offset": off, "q_scale": qs,
                        "dtype": str(dt).removeprefix("torch."),
+                       "form": attn_mod.FORM[dt],
                        "max_abs_err": err, "elements_beyond_1_ulp": beyond_ulp,
                        "tol": rule, "ok": ok})
     ssd_cases = [(1, L, 64, 64, 64, 1) for L in (97, 128, 1000)]
@@ -409,7 +445,8 @@ def lm_phases(cuda_ms) -> list:
     long_prompt = prompts[-1][:-1]
     runs["prefill_999"] = gpu_trace(lambda: model.prefill(
         params, {"tokens": torch.tensor([long_prompt], device=dev)},
-        model.init_cache(1, SERVE_MAX_LEN)), "zamba2_prefill", 1)
+        model.init_cache(1, SERVE_MAX_LEN)), "zamba2_prefill", 1,
+        focus=("flash_attention", "ssd_scan"))
     pos = torch.tensor([300, 500, 700, 1000], device=dev)
     tok = torch.tensor([1, 2, 3, 4], device=dev)
     runs["decode_step_4_slots"] = gpu_trace(lambda: model.decode_step(
@@ -564,14 +601,34 @@ def lm_phases(cuda_ms) -> list:
             f"err {tf_f32}")
 
     # --- lm_times: each kernel per launch at the serving shapes ----------
-    # Attention: the shared block's prefill, (1, 32, L, 64) bf16, L = each
-    # serving prompt length - 1; bound: q, k, v read and out written once,
-    # against 4 * D FLOP for each unmasked (q, k) pair at the bf16 tensor-
-    # core rate.  SSD: a Mamba-2 prefill, H = P = N = 64, G = 1, f32 (the
+    # Every time here (kernel, plain version, library call) is the device
+    # time of one call, the least of 10 (`device_ms`): at these lengths 20
+    # calls back to back would time the host's launches.  Attention: the
+    # shared block's prefill, (1, 32, L, 64) bf16, L = each serving prompt
+    # length - 1; bound: q, k, v read and out written once, against 4 * D
+    # FLOP for each unmasked (q, k) pair at the bf16 tensor-core rate;
+    # beside it, in the rows only, the bound of the kernel's own form, 6 * D
+    # FLOP a pair (the split PV's second product), and at L = 999 the f32
+    # FMA kernel (f32 operands) against its bound at the f32 rate, and ten
+    # traced calls of the kernel and of SDPA (their device kernels by name,
+    # from the profiler).  SSD: a Mamba-2 prefill, H = P = N = 64, G = 1, f32 (the
     # reference casts its inputs so); bound: x, dt, A, B, C read and y and
     # the state written once, against the chunks' products (lower
     # triangles only, each chunk's real rows) at the f32 rate, with the
     # TF32 rate beside it.
+    def device_ms(run, n: int = 10) -> float:
+        run()
+        return min(one_launch_ms(run) for _ in range(n))
+
+    def traced(run, name):
+        # the profiler may record fewer activities than calls, so each
+        # device kernel's time is its mean over the activities recorded
+        t = gpu_trace(run, name, 10)
+        return {"calls": t["runs"],
+                "kernels": [{"name": e["name"], "activities": e["calls"],
+                             "ms_an_activity": e["ms"] / e["calls"]}
+                            for e in t["top"]]}
+
     attn_rows, ssd_rows = [], []
     for n in SERVE_PROMPTS:
         L = n - 1
@@ -580,14 +637,45 @@ def lm_phases(cuda_ms) -> list:
         pairs = L * (L + 1) // 2
         b_ms, b_by = bound_ms(4 * 32 * L * 64 * 2, 32 * pairs * 4.0 * 64,
                               BF16_FLOPS_PER_S)
+
+        def kernel():
+            return attn_mod.flash_attention(q, k, v, causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
         attn_rows.append({
-            "L": L, "ms": cuda_ms(lambda: attn_mod.flash_attention(
-                q, k, v, causal=True)),
-            "plain_ms": cuda_ms(lambda: ref.attention(q, k, v, causal=True),
-                                reps=5),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)),
-            "bound_ms": b_ms, "bound_by": b_by})
+            "L": L, "ms": device_ms(kernel),
+            "plain_ms": device_ms(lambda: ref.attention(q, k, v, causal=True),
+                                  n=3),
+            "library_ms": device_ms(sdpa),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_split_pv": bound_ms(4 * 32 * L * 64 * 2,
+                                          32 * pairs * 6.0 * 64,
+                                          BF16_FLOPS_PER_S)[0]})
+        if L == 999:
+            # the achieved rate of the row's one-launch time; the kernel's
+            # occupancy; the profiler's device time of the kernel and SDPA
+            one_ms = attn_rows[-1]["ms"]
+            occ = attn_mod.bf16_kernel_attributes(64)
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            attn_profile = {
+                "L": L, "device_ms_one_launch": one_ms,
+                "tflop_per_s": 32 * pairs * 4.0 * 64 / one_ms / 1e9,
+                "tflop_per_s_split_pv": 32 * pairs * 6.0 * 64 / one_ms / 1e9,
+                "grid_blocks": 32 * ((L + 63) // 64), "sms": n_sm,
+                "warps_per_sm": 4 * occ["blocks_per_sm"], **occ,
+                "kernel_traced": traced(kernel, "attn_kernel_999"),
+                "sdpa_traced": traced(sdpa, "attn_sdpa_999")}
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            attn_f32 = {
+                "L": L, "form": attn_mod.FORM[torch.float32],
+                "ms": device_ms(lambda: attn_mod.flash_attention(
+                    q32, k32, v32, causal=True)),
+                "bound_ms": bound_ms(4 * 32 * L * 64 * 4,
+                                     32 * pairs * 4.0 * 64)[0],
+                "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                    q32, k32, v32, is_causal=True))}
         H = P = N = 64
         x = randn(1, L, H, P, scale=0.1)
         dt_ = torch.full((1, L, H), 0.05, device=dev)
@@ -601,16 +689,16 @@ def lm_phases(cuda_ms) -> list:
         n_bytes = 4 * (2 * L * H * P + L * H + H + 2 * L * N + H * N * P)
         s_ms, s_by = bound_ms(n_bytes, flops)
         ssd_rows.append({
-            "L": L, "ms": cuda_ms(lambda: ssd_mod.ssd_scan(x, dt_, A, Bm, C)),
-            "plain_ms": cuda_ms(lambda: ref.ssd_scan_chunked(
-                x, dt_, A, Bm, C), reps=5),
+            "L": L, "ms": device_ms(lambda: ssd_mod.ssd_scan(x, dt_, A, Bm, C)),
+            "plain_ms": device_ms(lambda: ref.ssd_scan_chunked(
+                x, dt_, A, Bm, C), n=3),
             "library_ms": None, "bound_ms": s_ms, "bound_by": s_by,
             "bound_ms_at_tf32_rate": bound_ms(n_bytes, flops,
                                               TF32_FLOPS_PER_S)[0]})
 
     def mean_row(rows):
-        keys = ("ms", "plain_ms", "bound_ms")
-        out = {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+        out = {k: sum(r[k] for r in rows) / len(rows)
+               for k in ("ms", "plain_ms", "bound_ms")}
         lib = [r["library_ms"] for r in rows]
         out["library_ms"] = None if None in lib else sum(lib) / len(lib)
         out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
@@ -618,16 +706,21 @@ def lm_phases(cuda_ms) -> list:
         return out
 
     attn_mean, ssd_mean = mean_row(attn_rows), mean_row(ssd_rows)
-    emit({"phase": "lm_times", "note": "ms per launch; the means are over "
-          "the 8 serving prefill lengths, each launched 6 (attention) or 40 "
-          "(SSD) times a prefill; no PyTorch call computes the SSD scan",
-          "flash_attention": {"by_length": attn_rows, "mean": attn_mean},
+    emit({"phase": "lm_times", "note": "device ms of one launch, the least "
+          "of 10; the means are over the 8 serving prefill lengths, each "
+          "launched 6 (attention) or 40 (SSD) times a prefill; no PyTorch "
+          "call computes the SSD scan",
+          "flash_attention": {"form": attn_mod.FORM[torch.bfloat16],
+                              "by_length": attn_rows, "mean": attn_mean,
+                              "f32_fma_kernel": attn_f32,
+                              "profile_one_launch": attn_profile},
           "ssd_scan": {"by_length": ssd_rows, "mean": ssd_mean}})
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:97",
          "path": "zamba2_serve", "launches": launches["flash_attention"],
+         "form": attn_mod.FORM[torch.bfloat16],
          "max_abs_err": attn_err, **attn_mean},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -4,9 +4,11 @@ plain versions.
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``:
 blocked online-softmax attention with causal and sliding-window masks in
 global positions (``q_offset``), GQA folded into the kv index, and the
-tiles past the causal/window frontier skipped.  ``plain`` is the dense
-oracle from ``ref.py``; ``ops.flash_attention`` sends a CPU tensor there
-(or to ``ref.attention_blockwise`` above a kv length of 2048).
+tiles past the causal/window frontier skipped.  bf16 runs on the tensor
+cores (``mma.sync``, with p split into two bf16 halves for PV), f32 and
+f16 on the f32 FMA units (``FORM``).  ``plain`` is the dense oracle from
+``ref.py``; ``ops.flash_attention`` sends a CPU tensor there (or to
+``ref.attention_blockwise`` above a kv length of 2048).
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ _ENTRY = {
     torch.bfloat16: "flash_attention_bf16",
     torch.float16: "flash_attention_f16",
 }
+#: The kernel each dtype's entry runs (csrc/flash_attention.cu's header).
+FORM = {
+    torch.float32: "f32 FMA",
+    torch.bfloat16: "mma.sync bf16, split p",
+    torch.float16: "f32 FMA",
+}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -39,7 +47,27 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P] + [_I] * 9 + [_F, _P]
         fn.restype = _I
+    lib.flash_attention_bf16_attributes.argtypes = [
+        _I] + [ctypes.POINTER(_I)] * 3
+    lib.flash_attention_bf16_attributes.restype = _I
     return lib
+
+
+def bf16_kernel_attributes(head_dim: int) -> dict:
+    """The bf16 tensor-core kernel at ``head_dim``: registers a thread,
+    dynamic shared memory a block, and the blocks one SM holds (the CUDA
+    occupancy query).  Needs the card; launches nothing."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel: head dim {head_dim} not in "
+                         f"1..{MAX_HEAD_DIM}")
+    lib = _lib()
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = lib.flash_attention_bf16_attributes(head_dim,
+                                             *(ctypes.byref(x) for x in out))
+    _build.check(lib, rc, "flash_attention attribute query")
+    regs, smem, blocks = (x.value for x in out)
+    return {"registers_per_thread": regs, "smem_bytes_per_block": smem,
+            "blocks_per_sm": blocks, "threads_per_block": 128}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

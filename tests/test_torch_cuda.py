@@ -356,6 +356,37 @@ def test_attention_kernel_matches_plain_on_card(card, rng, dtype, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,q_offset,q_scale", [
+    ((1, 2, 2, 40, 40, 8), True, None, 0, 1.0),       # D = 8, padded to 16
+    ((1, 4, 4, 130, 130, 64), True, None, 0, 4.0),    # q x 4: |s| up to ~20
+    ((1, 4, 2, 100, 100, 80), True, 24, 0, 4.0),      # q x 4, GQA, D = 80
+    ((1, 32, 32, 1000, 1000, 64), True, None, 0, 1.0),  # a serving prefill
+    ((1, 2, 1, 50, 90, 20), False, None, 0, 1.0),     # D % 8 != 0
+])
+def test_attention_bf16_tensor_core_cases_on_card(card, rng, shape, causal,
+                                                  window, q_offset, q_scale):
+    """The bf16 kernel's tensor-core form (mma.sync, p split into two bf16
+    halves for PV) at the shapes that stress it, under the bf16 rule of
+    test_attention_kernel_matches_plain_on_card."""
+    B, Hq, Hkv, Lq, Lkv, D = shape
+    q = _t(rng.normal(size=(B, Hq, Lq, D)).astype(np.float32) * q_scale)
+    k = _t(rng.normal(size=(B, Hkv, Lkv, D)).astype(np.float32))
+    v = _t(rng.normal(size=(B, Hkv, Lkv, D)).astype(np.float32))
+    q, k, v = (x.to(card, torch.bfloat16) for x in (q, k, v))
+    assert attn_mod.FORM[torch.bfloat16] == "mma.sync bf16, split p"
+    before = attn_mod.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert attn_mod.launches == before + 1 and got.dtype == torch.bfloat16
+    want = ref.attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+    g, w, tol = _bf16_attention_tol(got, want, v)
+    excess = float(((g - w).abs() - tol).max())
+    assert excess <= 0.0, excess
+
+
+@pytest.mark.cuda
 def test_attention_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 8, 16), device=card)
     with pytest.raises(ValueError, match="contiguous"):

@@ -152,6 +152,138 @@ def test_attention_plain_bf16_output(rng):
     assert np.all(np.abs(got.float().numpy() - want) <= ulp)
 
 
+# --- the bf16 kernel's arithmetic, on the CPU ---------------------------------
+
+NEG_INF = -1e30
+
+
+def _split_bf16(p):
+    """p -> (p_hi, p_lo), both bf16 values held in f32: p_hi = bf16(p),
+    p_lo = bf16(p - p_hi) (the difference is exact in f32)."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_attention(q, k, v, *, causal, window=None, q_offset=0,
+                           split=True, bk=64):
+    """The rounding of the bf16 kernel (csrc/flash_attention.cu, its
+    mma.sync form), step for step in torch: bf16 operands (their products
+    exact in f32), f32 scores scaled after the product, the online
+    softmax over 64-key tiles with -1e30 for a masked score and p = 0
+    there, PV as P_hi V + P_lo V (``split=False``: p rounded once to
+    bf16), l the f32 sum of the unsplit p, one division by l and one
+    rounding to bf16.  Only the order of the f32 sums differs from the
+    tensor cores'."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    scale = torch.tensor(1.0 / (D ** 0.5), dtype=torch.float32)
+    q_pos = q_offset + torch.arange(Lq)[:, None]
+    m = torch.full((B, Hq, Lq, 1), NEG_INF)
+    l = torch.zeros((B, Hq, Lq, 1))
+    acc = torch.zeros((B, Hq, Lq, D))
+    for j0 in range(0, Lkv, bk):
+        kv_pos = torch.arange(j0, min(j0 + bk, Lkv))[None, :]
+        ok = torch.ones((Lq, kv_pos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= q_pos >= kv_pos
+        if window is not None:
+            ok &= q_pos - kv_pos < window
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, j0:j0 + bk]) * scale
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        vt = vf[:, :, j0:j0 + bk]
+        if split:
+            hi, lo = _split_bf16(p)
+            acc = corr * acc + hi @ vt + lo @ vt
+        else:
+            acc = corr * acc + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).to(torch.bfloat16)
+
+
+def _beyond_bf16_check(got, want, v):
+    """Elements past the bf16 rule of the card's checks (chip_smoke.py,
+    tests/test_torch_cuda.py): one bf16 ulp at the larger magnitude plus
+    1e-5 of max|v|."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+    return int(((g - w).abs() > ulp + 1e-5 * float(v.float().abs().max()))
+               .sum())
+
+
+def _bf16_qkv(rng, B, Hq, Hkv, Lq, Lkv, D, q_scale=1.0):
+    q, k, v = _qkv(rng, B, Hq, Hkv, Lq, Lkv, D)
+    return tuple(_t(a).to(torch.bfloat16) for a in (q * q_scale, k, v))
+
+
+@pytest.mark.parametrize("shape,causal,window,q_offset,q_scale", [
+    ((1, 4, 4, 72, 72, 64), True, None, 0, 1.0),      # two kv tiles
+    ((1, 4, 1, 37, 37, 8), True, None, 0, 1.0),       # MQA, ragged, D = 8
+    ((2, 4, 2, 70, 150, 80), True, 24, 80, 1.0),      # GQA, window, offset
+    ((1, 2, 2, 24, 16, 8), False, 1, 0, 1.0),         # fully masked rows
+    ((1, 4, 4, 130, 130, 64), True, None, 0, 4.0),    # q x 4
+    ((1, 2, 2, 3, 200, 80), True, None, 197, 4.0),    # q x 4 at the end
+])
+def test_tensor_core_arithmetic_meets_the_bf16_check(rng, shape, causal,
+                                                     window, q_offset,
+                                                     q_scale):
+    """The bf16 kernel's rounding (bf16 operands, split p) against the
+    JAX package's Pallas body (interpret mode, bf16 in and out) and the
+    port's dense oracle, under the card's rule: one bf16 ulp + 1e-5 of
+    max|v|, with no element past it."""
+    B, Hq, Hkv, Lq, Lkv, D = shape
+    q, k, v = _bf16_qkv(rng, B, Hq, Hkv, Lq, Lkv, D, q_scale)
+    got = _tensor_core_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    jq, jk, jv = (jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                  for a in (q, k, v))
+    want = jflash(jq, jk, jv, causal=causal, window=window,
+                  q_offset=q_offset, interpret=True, bq=64, bk=64)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert _beyond_bf16_check(got, want, v) == 0
+    dense = ref.attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    assert _beyond_bf16_check(got, dense, v) == 0
+    if Lkv < Lq:
+        assert torch.all(got[:, :, Lkv:] == 0)
+
+
+@pytest.mark.parametrize("L", [127, 513])
+def test_one_bf16_rounding_of_p_breaks_the_check(rng, L):
+    """Why p is split: rounded once to bf16 for PV, the same inputs put
+    elements past the rule that the split form meets."""
+    q, k, v = _bf16_qkv(rng, 1, 4, 4, L, L, 64, 4.0)
+    dense = ref.attention(q, k, v, causal=True)
+    once = _tensor_core_attention(q, k, v, causal=True, split=False)
+    split = _tensor_core_attention(q, k, v, causal=True)
+    assert _beyond_bf16_check(once, dense, v) > 0
+    assert _beyond_bf16_check(split, dense, v) == 0
+
+
+def test_p_split_error_is_within_2_to_the_minus_17(rng):
+    """|p - p_hi - p_lo| <= 2^-17 p over seeded p in [0, 1], uniform and
+    spread over 80 binades (exp of -U(0, 80)), as the kernel's p are: for
+    p in [2^e, 2^(e+1)), |p - p_hi| <= 2^(e-8), and p_lo's own rounding
+    is at most 2^(e-17).  The bound is reached: 2^-18 p is not a bound.
+    So after the division by l the PV error is at most 2^-17 max|v|
+    (7.6e-6), under the bf16 check's 1e-5 of max|v|."""
+    p = np.concatenate([rng.uniform(0.0, 1.0, 100_000),
+                        np.exp(-rng.uniform(0.0, 80.0, 100_000)), [0.0, 1.0]])
+    p = torch.from_numpy(p.astype(np.float32))
+    hi, lo = _split_bf16(p)
+    err = (p.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -17 * p.double()).all())
+    assert bool((err > 2.0 ** -18 * p.double()).any())
+    assert bool((hi == p.to(torch.bfloat16).float()).all())
+
+
 # --- SSD ----------------------------------------------------------------------
 
 

@@ -170,6 +170,35 @@ def test_engine_samples_from_its_seeded_generator(zamba):
     assert run(3) == run(3)
 
 
+def test_engine_samples_every_slot_at_slot_zeros_temperature(zamba):
+    """The reference's ``Engine.step`` quirk, which the port keeps: one
+    sample call for every slot at slot 0's temperature
+    (repro/serve/engine.py:132-134, repro_torch/serve/engine.py:134-136),
+    and an empty slot 0 counts as 0.0, so every slot is greedy.  Neither
+    engine is edited; both are held to the same greedy tokens."""
+    jm, jp, m, p = zamba
+    a, b = [5, 9, 2, 7], [11, 4, 8]
+    engines = ((Engine, Request, m, p, {"device": "cpu"}),
+               (JEngine, JRequest, jm, jp, {}))
+
+    def serve(engine, request, model, params, kw, reqs):
+        eng = engine(model, params, n_slots=2, max_len=32, **kw)
+        rs = [request(uid=i, prompt=list(pr), max_new_tokens=n,
+                      temperature=t) for i, (pr, n, t) in enumerate(reqs)]
+        for r in rs:
+            eng.submit(r)
+        eng.run()
+        return [list(map(int, r.output)) for r in rs]
+
+    greedy_b = serve(*engines[0], [(b, 6, 0.0)])[0]
+    assert serve(*engines[1], [(b, 6, 0.0)])[0] == greedy_b
+    for eng in engines:
+        # slot 0 greedy for one token, then empty: slot 1 asks for 1e4 and
+        # gets greedy tokens throughout
+        assert serve(*eng, [(a, 1, 0.0), (b, 6, 1e4)])[1] == greedy_b
+        # slot 0 at 1e4: slot 1 asks for greedy and is sampled at 1e4
+        assert serve(*eng, [(a, 6, 1e4), (b, 6, 0.0)])[1] != greedy_b
+
 def test_launch_serve_runs_on_the_cpu(capsys):
     serve_cli.main(["--arch", "zamba2-1.2b", "--requests", "3", "--slots",
                     "2", "--max-new", "3", "--max-len", "32", "--device",
