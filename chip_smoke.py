@@ -34,10 +34,12 @@ on the tensor cores, p split into two bf16 halves), a full-width f32
 cut against the CPU, the full model serving 8 requests through ``Engine``
 in bf16 (and f32), the same traffic on ``quantize_weights_int8`` weights
 dequantized to bf16, and the float -> int rewrite's GEMM
-(``matmul_phases``): the matmul kernel against its plain version and
-``quantized_matmul`` at the model's full-width GEMMs, with times; the LM
-kernels' times beside SDPA and their bounds, and one attention launch
-profiled (device time, TFLOP/s, registers, blocks an SM).
+(``matmul_phases``): the matmul kernel (int8 on the tensor cores, in its
+tile and split-K decode forms) against its plain version and
+``quantized_matmul`` at the model's full-width GEMMs, with device times
+beside ``torch._int_mm``'s and a profiler trace of both; the LM kernels'
+times beside SDPA and their bounds, and one attention launch profiled
+(device time, TFLOP/s, registers, blocks an SM).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -112,6 +114,13 @@ def one_launch_ms(run) -> float:
     return start.elapsed_time(end)
 
 
+def device_ms(run, n: int = 10) -> float:
+    """Device time of one call of ``run``, the least of ``n``
+    (``one_launch_ms``) after one call to warm up."""
+    run()
+    return min(one_launch_ms(run) for _ in range(n))
+
+
 def gpu_trace(run, name: str, n_runs: int, focus=()):
     """Profile ``run`` called ``n_runs`` times (torch.profiler, CPU and
     CUDA activities); every GPU activity of the trace summed by name, the
@@ -152,6 +161,17 @@ def gpu_trace(run, name: str, n_runs: int, focus=()):
             "top": [{"name": k[:90], "calls": len(v), "ms": sum(v)}
                     for k, v in top],
             "trace": str(trace_path.relative_to(ROOT)), "runs": n_runs}
+
+
+def traced(run, name: str) -> dict:
+    """Ten calls of ``run`` under the profiler: each device kernel by name
+    with its mean time over the activities recorded (the profiler may
+    record fewer activities than calls)."""
+    t = gpu_trace(run, name, 10)
+    return {"calls": t["runs"],
+            "kernels": [{"name": e["name"], "activities": e["calls"],
+                         "ms_an_activity": e["ms"] / e["calls"]}
+                        for e in t["top"]]}
 
 
 # The slice's serving traffic: 8 greedy requests of these prompt lengths,
@@ -616,19 +636,6 @@ def lm_phases(cuda_ms) -> list:
     # the state written once, against the chunks' products (lower
     # triangles only, each chunk's real rows) at the f32 rate, with the
     # TF32 rate beside it.
-    def device_ms(run, n: int = 10) -> float:
-        run()
-        return min(one_launch_ms(run) for _ in range(n))
-
-    def traced(run, name):
-        # the profiler may record fewer activities than calls, so each
-        # device kernel's time is its mean over the activities recorded
-        t = gpu_trace(run, name, 10)
-        return {"calls": t["runs"],
-                "kernels": [{"name": e["name"], "activities": e["calls"],
-                             "ms_an_activity": e["ms"] / e["calls"]}
-                            for e in t["top"]]}
-
     attn_rows, ssd_rows = [], []
     for n in SERVE_PROMPTS:
         L = n - 1
@@ -776,16 +783,23 @@ def matmul_phases(cuda_ms, params) -> dict:
     # plus 3x the plain's f32 error; the elements past one ulp, outputs
     # that cancel to near 0, where the two f32 sums differ by more than the
     # ulp, are counted.
+    # int8 runs in two forms (mm_mod.plan: decode for M <= 16, tile
+    # above); the sweep crosses both with K and N on and off the 16-byte
+    # load path and ragged column strips, and the extremes fill the int32
+    # accumulator: K = 131071 of -128 x -128 (2^31 - 16384) or 127 x -128.
     checks = []
     odd = [(33, 129, 65), (100, 70, 50), (37, 1, 45), (4, 2048, 8384)]
     full = [(m, w.shape[0], w.shape[1]) for w in weights.values()
             for m in ROWS]
-    for m, k, n in odd + full:
+    sweep = [(m, k, n) for m in (1, 4, 16, 17, 128, 129)
+             for k in (1, 31, 32, 33, 129, 2048, 8192) for n in (130, 272)]
+    for m, k, n in odd + full + sweep:
         x, y = ints(m, k), ints(k, n)
         got = mm_mod.tiled_matmul(x, y)
         torch.cuda.synchronize()
         same = torch.equal(got, ref.tiled_matmul(x, y))
         c = {"kernel": "tiled_matmul", "dtype": "int8", "shape": [m, k, n],
+             "form": mm_mod.plan(m, n, k).form,
              "bit_exact_vs_card_plain": same}
         if m * k * n <= 10 ** 8:
             same_cpu = torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(),
@@ -795,6 +809,22 @@ def matmul_phases(cuda_ms, params) -> dict:
         checks.append({**c, "max_abs_err": 0.0 if same else float(
             (got.double() - ref.tiled_matmul(x, y).double()).abs().max()),
             "ok": same})
+    for m in (4, 33):
+        for vx, vy in ((-128, -128), (127, -128)):
+            k, n = 131071, 5
+            x = torch.full((m, k), vx, dtype=torch.int8, device=dev)
+            y = torch.full((k, n), vy, dtype=torch.int8, device=dev)
+            got = mm_mod.tiled_matmul(x, y)
+            torch.cuda.synchronize()
+            same = (torch.equal(got, ref.tiled_matmul(x, y))
+                    and int(got[0, 0]) == k * vx * vy)
+            checks.append({"kernel": "tiled_matmul", "dtype": "int8",
+                           "shape": [m, k, n], "extreme": [vx, vy],
+                           "form": mm_mod.plan(m, n, k).form,
+                           "sum": int(got[0, 0]),
+                           "bit_exact_vs_card_plain": same,
+                           "max_abs_err": 0.0 if same else float("inf"),
+                           "ok": same})
     for m, k, n in [(32, 48, 16)] + odd:
         x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
         y = torch.from_numpy((rng.normal(size=(k, n)) * 0.02)
@@ -880,27 +910,52 @@ def matmul_phases(cuda_ms, params) -> dict:
         raise SystemExit(f"quantized_matmul failed: {bad}")
 
     # --- matmul_times -------------------------------------------------------
-    # int8: the bound is the larger of each operand read once and the int32
-    # product written once, and 2MNK operations at the int8 tensor-core
-    # rate; the library call is torch._int_mm (it needs M > 16 and K, N
-    # multiples of 8, so none at M = 4).  bf16 / f32 at in_proj: torch.mm
-    # (TF32 off) and the bf16 tensor-core or f32 rate.
-    times = []
+    # Every time is the device time of one call, the least of 10
+    # (`device_ms`), for the kernel, its plain version (3) and the library
+    # call alike.  int8: the bound is the larger of each operand read once
+    # and the int32 product written once, and 2MNK operations at the int8
+    # tensor-core rate; the library call is torch._int_mm (it needs M > 16
+    # and K, N multiples of 8, so none at M = 4); beside them the form the
+    # C entry takes, its registers, shared memory and blocks an SM, and the
+    # kernel's TOPS.  At in_proj, M = 999, ten calls of the kernel and of
+    # torch._int_mm are traced (their device kernels by name), and at
+    # M = 4 and 16 ten of the kernel (its decode form and the memset
+    # before it; M sets the decode form's atomics, not its reads).
+    # The timer's floor is the device time of one launch of a one-element
+    # fill.  bf16 / f32 at in_proj: torch.mm (TF32 off) and the bf16
+    # tensor-core or f32 rate.
+    times, int8_traced = [], {}
+    one = torch.zeros(1, device=dev)
+    timer_floor_ms = device_ms(lambda: one.fill_(1.0))
     for name, w in weights.items():
         K, N = w.shape
         for m in ROWS:
             x, y = ints(m, K), ints(K, N)
             b, by = bound_ms(m * K + K * N + 4 * m * N, 2.0 * m * N * K,
                              INT8_OPS_PER_S)
-            times.append({
-                "gemm": name, "dtype": "int8", "shape": [m, K, N],
-                "ms": cuda_ms(lambda: mm_mod.tiled_matmul(x, y)),
-                "plain_ms": cuda_ms(lambda: ref.tiled_matmul(x, y), reps=5),
-                "library_ms": (cuda_ms(lambda: torch._int_mm(x, y))
-                               if m > 16 else None),
-                "library": "torch._int_mm" if m > 16 else "none",
-                "bound_ms": b, "bound_by": by})
+            row = {"gemm": name, "dtype": "int8", "shape": [m, K, N],
+                   "ms": device_ms(lambda: mm_mod.tiled_matmul(x, y)),
+                   "plain_ms": device_ms(lambda: ref.tiled_matmul(x, y),
+                                         n=3),
+                   "library_ms": (device_ms(lambda: torch._int_mm(x, y))
+                                  if m > 16 else None),
+                   "library": "torch._int_mm" if m > 16 else "none",
+                   "bound_ms": b, "bound_by": by,
+                   **mm_mod.int8_kernel_attributes(m, N, K)}
+            row["tops"] = 2.0 * m * N * K / row["ms"] / 1e9
+            times.append(row)
+            if name == "mamba2_in_proj":
+                int8_traced[f"M={m}"] = {
+                    "shape": [m, K, N],
+                    "kernel": traced(lambda: mm_mod.tiled_matmul(x, y),
+                                     f"int8_mm_kernel_{m}")}
+                if m > 16:
+                    int8_traced[f"M={m}"]["int_mm"] = traced(
+                        lambda: torch._int_mm(x, y), f"int8_mm_int_mm_{m}")
     K, N = weights["mamba2_in_proj"].shape
+    x, y = ints(16, K), ints(K, N)
+    int8_traced["M=16"] = {"shape": [16, K, N], "kernel": traced(
+        lambda: mm_mod.tiled_matmul(x, y), "int8_mm_kernel_16")}
     for dt, rate in ((torch.bfloat16, BF16_FLOPS_PER_S),
                      (torch.float32, F32_FLOPS_PER_S)):
         x, y = normal(999, K, dtype=dt), normal(K, N, dtype=dt)
@@ -910,18 +965,21 @@ def matmul_phases(cuda_ms, params) -> dict:
         times.append({
             "gemm": "mamba2_in_proj", "dtype": str(dt)[6:],
             "shape": [999, K, N],
-            "ms": cuda_ms(lambda: ops.tiled_matmul(x, y)),
-            "plain_ms": cuda_ms(lambda: ref.tiled_matmul(x, y), reps=5),
-            "library_ms": cuda_ms(lambda: torch.mm(x, y)),
+            "ms": device_ms(lambda: ops.tiled_matmul(x, y)),
+            "plain_ms": device_ms(lambda: ref.tiled_matmul(x, y), n=3),
+            "library_ms": device_ms(lambda: torch.mm(x, y)),
             "library": "torch.mm", "bound_ms": b, "bound_by": by})
-    emit({"phase": "matmul_times", "note": "ms per launch; the plain "
-          "version multiplies int8 in float64 and floats in f32 (TF32 off)",
-          "rows": times})
+    emit({"phase": "matmul_times", "note": "device ms of one launch, the "
+          "least of 10 (the plain version's of 3); the plain version "
+          "multiplies int8 in float64 and floats in f32 (TF32 off)",
+          "timer_floor_ms": timer_floor_ms, "rows": times,
+          "int8_traced": int8_traced})
     main = times[0]     # int8 at in_proj, M = 999: the 1000-token prefill
     return {"name": "tiled_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
             "replaces": "src/repro/kernels/tiled_matmul.py:57",
             "path": "quantized_matmul", "launches": launches,
+            "form": main["form"],
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c.get("dtype") == "int8"),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,43 +1,76 @@
-// Output-stationary tiled GEMM (M, K) @ (K, N) for Hopper: int8 x int8 ->
-// int32 exact, and f32 / bf16 / f16 with f32 accumulation.
+// Tiled GEMM (M, K) @ (K, N) for Hopper: int8 x int8 -> int32 exact on the
+// tensor cores, and f32 / bf16 / f16 with f32 accumulation on the FMA pipe.
 //
 // Replaces the TPU kernel repro/kernels/tiled_matmul.py::tiled_matmul (body
 // _matmul_kernel), the paper's Gemmini tiled_matmul_auto on the MXU: a
 // (bm, bn) accumulator in VMEM scratch carried across a sequential k grid
-// axis, ragged shapes zero-padded in HBM first.  Here one block owns one
-// 64x64 output tile for the whole contraction (blocks run in no order, so
-// nothing is carried between them): K is staged through shared memory in
-// steps of 32, each of the 256 threads keeps a 4x4 block of the tile in
-// registers, and the ragged edges of M, N and K are masked as the tiles
-// are loaded (zeros), with no padded copy in device memory.
+// axis, ragged shapes zero-padded in HBM first.  Here blocks run in no
+// order, so nothing is carried between them: a block either owns its
+// output tile for the whole contraction, or (the decode form below) adds
+// its slice of K into the output with atomics.  Ragged edges of M, N and K
+// are zero-filled as tiles are loaded, with no padded copy in device
+// memory.
 //
-// Arithmetic.  int8: four k-values packed per 32-bit word, accumulated with
-// __dp4a into int32, exact while |sum| < 2^31, which holds for any K below
-// 131072 (the largest product is 128^2).  Floats: each operand converted
-// to f32 once, in shared memory; a partial sum chains 8 k-values with
-// __fmaf_rn, and the partials are added to the running sum with Kahan
-// compensation, so the sum's error is that of an 8-term chain, not of a
-// K-term one (a single K-long chain erred 2.4-6.4x more than cuBLAS's f32
-// product on the H100); the output is rounded to its type once, to
-// nearest even.  A bf16 or f16 product of two operands is exact in f32, so
-// those sums differ from the library's f32 product only in the additions.
+// int8 (mma_kernel).  Every product is mma.sync.m16n8k32.s32.s8.s8.s32, the
+// tensor cores' integer MMA: exact, and integer addition is associative,
+// so any order of sums (split-K partials included) gives the same int32,
+// equal to the plain version while |sum| < 2^31, which holds for any K
+// below 131072 (the largest product is 128^2).  The C entry picks one of
+// two forms by M:
+//   * tile (M > 16): a block of 8 warps owns a 128x128 output tile, each
+//     warp 64x32 of it as 4 x 4 m16n8 accumulators;
+//   * decode (M <= 16): a block of 4 warps owns a 16 x 128 strip and one
+//     slice of K (a multiple of 64); the slices are chosen so that the
+//     grid holds about 4 blocks for each of the H100's 132 SMs, the
+//     output is zeroed on the stream first and every block adds its
+//     partial sums with atomicAdd.  A decode step is one pass over y.
+// Both forms stream 64-deep k steps of x and y through a 4-stage ring in
+// shared memory by 16-byte cp.async (zero-filled past M, N and K), and
+// take element-by-element loads instead where a row is not 16-byte
+// aligned (K or N not a multiple of 16).  A fragments come from x's rows
+// (K-contiguous) by ldmatrix.  The B operand (.col) wants four k of one
+// column in a register, but y is N-contiguous: ldmatrix.x4.trans on a b16
+// view gives each lane two k of two columns from each of four 8-row
+// matrices whose rows are k = 4i + {0, 1} (+2, +16, +18), and one
+// __byte_perm of two such registers packs k 4q..4q+3 of the even column,
+// another those of the odd one, so one x4 load feeds two n8 products.
+// The even / odd products' accumulators interleave back to four
+// consecutive columns a lane, stored as one int4.  Both tiles are
+// XOR-swizzled by 16-byte chunk so that every ldmatrix phase reads 8
+// distinct bank groups.
 //
 // What bounds it on this card.  At zamba2-1.2b's prefill (M = 999,
 // K = 2048, N = 8384) the int8 product is 34 GOP against 19 MB of int8
-// operands and 34 MB of int32 out: the int8 tensor-core rate (1979 TOPS)
-// would make it a 17 us job, the bytes 16 us.  This first design runs on the integer
-// and FMA pipes, not the tensor cores (wgmma with TMA loads is the later,
-// fast form), so it is bound by the dp4a / FMA rate and shared-memory
-// reads: per 4-deep k step a thread reads two 16-byte words and runs 16 dp4a
-// (or 16 FMA a k, and 4 adds a partial every 8 k).  A decode step (M = 4)
-// could take the time of reading the weight once (5 us at in_proj); here
-// one block streams each 64-column strip of y in K / 32 synchronised
-// steps, and those steps set its time (70 us on the H100).
+// operands and 34 MB of int32 out: at the int8 tensor-core rate (1979
+// TOPS, which needs wgmma) a 17 us job, the bytes 16 us.  The tile form
+// issues mma.sync, 16 a warp for each 32-deep k step against 6 ldmatrix
+// and 8 byte permutes, and reads x and y from L2 once for each tile
+// column and row (270 MB at that shape); on an H100 80GB HBM3 at 700 W it
+// reaches about 420 TOPS, and a GEMM with N = 2048 fills only 128 of the
+// card's 264 block slots.  wgmma with TMA is the later form.  A decode
+// step (M = 4) is bound by reading y once (17 MB, 5 us); the decode form
+// streams it at about 80% of the memory rate at M = 4, and its time grows
+// with M by the partials' atomics (M x 128 a block).
+//
+// Floats (matmul_f32acc_kernel): one block per 64x64 output tile, K staged
+// through shared memory in steps of 32, each of 256 threads keeping a 4x4
+// block in registers; each operand converted to f32 once, in shared
+// memory; a partial sum chains 8 k-values with __fmaf_rn, and the partials
+// are added to the running sum with Kahan compensation, so the sum's error
+// is that of an 8-term chain, not of a K-term one (a single K-long chain
+// erred 2.4-6.4x more than cuBLAS's f32 product on the H100); the output
+// is rounded to its type once, to nearest even.  A bf16 or f16 product of
+// two operands is exact in f32, so those sums differ from the library's
+// f32 product only in the additions.  It runs on the FMA pipe, bound by
+// the FMA rate and shared-memory reads.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -139,77 +172,297 @@ matmul_f32acc_kernel(const In* __restrict__ x, const In* __restrict__ y,
   }
 }
 
-// int8 operands: sA[k4][m] packs A[m][4 k4 .. 4 k4 + 3] into one word (low
-// byte first), sB[k4][n] packs B[4 k4 .. 4 k4 + 3][n]; __dp4a multiplies
-// the four signed byte pairs and adds them to the int32 sum.
-__global__ void __launch_bounds__(THREADS)
-matmul_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ y,
-                 int32_t* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int32_t sA[BK / 4][BM];
-  __shared__ __align__(16) int32_t sB[BK / 4][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int32_t acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+// ---------------------------------------------------------------------------
+// int8 on the tensor cores.
+namespace i8 {
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    {  // A tile: a thread packs 8 consecutive k of one row into two words
-      const int m = tid >> 2, kq = tid & 3;
-      const int gm = m0 + m;
-      uint32_t w[2] = {0u, 0u};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int gk = k0 + kq * 8 + e;
-        const uint32_t v =
-            (gm < M && gk < K) ? (uint32_t)(uint8_t)x[(size_t)gm * K + gk] : 0u;
-        w[e >> 2] |= v << (8 * (e & 3));
-      }
-      sA[kq * 2][m] = (int32_t)w[0];
-      sA[kq * 2 + 1][m] = (int32_t)w[1];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // B tile: a thread packs 4 k of one column
-      const int n = tid & (BN - 1), k4 = (tid >> 6) + 4 * r;
-      const int gn = n0 + n;
-      uint32_t w = 0u;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int gk = k0 + k4 * 4 + e;
-        const uint32_t v =
-            (gk < K && gn < N) ? (uint32_t)(uint8_t)y[(size_t)gk * N + gn] : 0u;
-        w |= v << (8 * e);
-      }
-      sB[k4][n] = (int32_t)w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k4 = 0; k4 < BK / 4; ++k4) {
-      const int4 a = *reinterpret_cast<const int4*>(&sA[k4][ty * 4]);
-      const int4 b = *reinterpret_cast<const int4*>(&sB[k4][tx * 4]);
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
+constexpr int BN = 128;            // output columns a block, both forms
+constexpr int BK = 64;             // contraction bytes a pipeline stage
+constexpr int STAGES = 4;          // cp.async ring depth
+constexpr int DECODE_ROWS = 16;    // M up to this takes the decode form
+constexpr int DECODE_BLOCKS = 528; // the decode grid's target: 4 x 132 SMs
+constexpr int TILE_BM = 128;       // output rows a tile-form block
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  // src_bytes 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c += a b: a 16 x 32 (row), b 32 x 8 (col), c 16 x 8, all exact in int32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offsets in a stage.  A: rows of BK bytes, 16-byte chunk c of row m
+// kept at chunk c ^ ((m >> 1) & 3).  B: rows (k) of BN bytes, chunk c of
+// row k kept at c ^ (((k >> 1) & 6) | (k & 1)), which maps the eight rows
+// k = 4i + {0, 1} of one ldmatrix.trans phase to eight distinct chunks.
+__device__ __forceinline__ int a_off(int m, int kb) {
+  return m * BK + ((((kb >> 4) ^ (m >> 1)) & 3) << 4) + (kb & 15);
+}
+__device__ __forceinline__ int b_off(int k, int nb) {
+  return k * BN + (((nb >> 4) ^ (((k >> 1) & 6) | (k & 1))) << 4) + (nb & 15);
+}
+
+// vec bits: 1 x rows 16-byte aligned, 2 y rows, 4 out rows (int4 stores).
+enum { A_VEC = 1, B_VEC = 2, OUT_VEC = 4 };
+
+// One form: BM_ x BN output a block, WM x WN warps, SPLIT: the block owns
+// rows [0, M) and the K slice blockIdx.y (k_slice deep) and adds its sums
+// into a zeroed output; otherwise blockIdx.y is the row tile and the block
+// covers all of K.
+template <int BM_, int WM, int WN, bool SPLIT, int MINB>
+__global__ void __launch_bounds__(WM * WN * 32, MINB)
+mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ y,
+           int32_t* __restrict__ out, int M, int N, int K, int k_slice, int vec) {
+  constexpr int NT = WM * WN * 32;
+  constexpr int TM = BM_ / WM, TN = BN / WN;  // a warp's tile
+  constexpr int MF = TM / 16, NG = TN / 16;   // m16 fragments; 16-column groups
+  constexpr int A_BYTES = BM_ * BK, STAGE = A_BYTES + BK * BN;
+  extern __shared__ __align__(16) int8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp / WN) * TM, wn = (warp % WN) * TN;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = SPLIT ? 0 : blockIdx.y * BM_;
+  const int kbeg = SPLIT ? blockIdx.y * k_slice : 0;
+  const int kend = SPLIT ? min(K, kbeg + k_slice) : K;
+  const int nk = (kend - kbeg + BK - 1) / BK;
+
+  auto load = [&](int stage, int kt) {
+    int8_t* sa = smem + stage * STAGE;
+    int8_t* sb = sa + A_BYTES;
+    const int k0 = kbeg + kt * BK;
+    if (vec & A_VEC) {
+#pragma unroll
+      for (int c = tid; c < BM_ * BK / 16; c += NT) {
+        const int m = c >> 2, kb = (c & 3) << 4;
+        const int gm = m0 + m, gk = k0 + kb;
+        const bool in = gm < M && gk < kend;
+        cp_async16(smem_addr(sa + a_off(m, kb)), in ? x + (size_t)gm * K + gk : x, in ? 16 : 0);
+      }
+    } else {
+      for (int w = tid; w < BM_ * BK / 4; w += NT) {
+        const int m = w >> 4, kb = (w & 15) << 2;
+        const int gm = m0 + m;
+        uint32_t v = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gk = k0 + kb + e;
+          if (gm < M && gk < kend) v |= (uint32_t)(uint8_t)x[(size_t)gm * K + gk] << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(sa + a_off(m, kb)) = v;
+      }
+    }
+    if (vec & B_VEC) {
+#pragma unroll
+      for (int c = tid; c < BK * BN / 16; c += NT) {
+        const int k = c >> 3, nb = (c & 7) << 4;
+        const int gk = k0 + k, gn = n0 + nb;
+        const bool in = gk < kend && gn < N;
+        cp_async16(smem_addr(sb + b_off(k, nb)), in ? y + (size_t)gk * N + gn : y, in ? 16 : 0);
+      }
+    } else {
+      for (int w = tid; w < BK * BN / 4; w += NT) {
+        const int k = w >> 5, nb = (w & 31) << 2;
+        const int gk = k0 + k;
+        uint32_t v = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gn = n0 + nb + e;
+          if (gk < kend && gn < N) v |= (uint32_t)(uint8_t)y[(size_t)gk * N + gn] << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(sb + b_off(k, nb)) = v;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+
+  int acc[MF][NG][2][4];  // [m16][16 columns][even / odd n8][C fragment]
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][p][r] = 0;
+
+  // A (ldmatrix.x4): lanes 0-7 give rows 0-7 of the first 16 k bytes,
+  // 8-15 rows 8-15, 16-31 the same rows of the next 16 bytes: a0..a3.
+  const int a_row = wm + (lane & 7) + (lane & 8), a_kb = (lane >> 4) << 4;
+  // B (ldmatrix.x4.trans): matrix j = lane / 8 holds rows
+  // k = 4 (r / 2) + (r & 1) + 2 (j & 1) + 16 (j / 2), r = lane & 7, so lane
+  // (g, q) gets k 4q, 4q+1 (matrix 0), 4q+2, 4q+3 (1) of columns 2g, 2g+1,
+  // and the same 16 deeper (2, 3).
+  const int b_k = ((lane & 7) >> 1) * 4 + (lane & 1) + ((lane >> 3) & 1) * 2 + (lane >> 4) * 16;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free for reuse
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    cp_async_commit();
+    const int8_t* sa = smem + (kt % STAGES) * STAGE;
+    const int8_t* sb = sa + A_BYTES;
+#pragma unroll
+    for (int s = 0; s < BK / 32; ++s) {
+      uint32_t a[MF][4];
+#pragma unroll
+      for (int i = 0; i < MF; ++i) ldsm_x4(a[i], smem_addr(sa + a_off(a_row + 16 * i, 32 * s + a_kb)));
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, smem_addr(sb + b_off(32 * s + b_k, wn + 16 * j)));
+        // bytes of r: (k, 2g), (k, 2g+1), (k+1, 2g), (k+1, 2g+1)
+        const uint32_t e0 = __byte_perm(r[0], r[1], 0x6420), e1 = __byte_perm(r[2], r[3], 0x6420);
+        const uint32_t o0 = __byte_perm(r[0], r[1], 0x7531), o1 = __byte_perm(r[2], r[3], 0x7531);
+#pragma unroll
+        for (int i = 0; i < MF; ++i) {
+          mma_s8(acc[i][j][0], a[i], e0, e1);  // columns 2g of the group
+          mma_s8(acc[i][j][1], a[i], o0, o1);  // columns 2g + 1
+        }
+      }
+    }
+  }
+
+  // Lane (g, q) holds rows g and g + 8 of each m16; the even product's
+  // C columns 2q, 2q+1 are the group's columns 4q, 4q+2, the odd's 4q+1,
+  // 4q+3: four consecutive columns.
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + wm + 16 * i + g + 8 * h;
+        const int gn = n0 + wn + 16 * j + 4 * q;
+        if (gm >= M) continue;
+        const int v[4] = {acc[i][j][0][2 * h], acc[i][j][1][2 * h], acc[i][j][0][2 * h + 1],
+                          acc[i][j][1][2 * h + 1]};
+        int32_t* o = out + (size_t)gm * N + gn;
+        if (SPLIT) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (gn + e < N) atomicAdd(o + e, v[e]);
+        } else if ((vec & OUT_VEC) && gn + 3 < N) {
+          *reinterpret_cast<int4*>(o) = make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (gn + e < N) o[e] = v[e];
+        }
+      }
+}
+
+// The two forms' shapes.
+template <bool DECODE> struct Form {  // tile
+  static constexpr int BM = TILE_BM, WM = 2, WN = 4, MINB = 2;
+};
+template <> struct Form<true> {  // decode
+  static constexpr int BM = DECODE_ROWS, WM = 1, WN = 4, MINB = 4;
+};
+template <bool D> constexpr int kThreads = Form<D>::WM * Form<D>::WN * 32;
+template <bool D> constexpr int kSmem = STAGES * (Form<D>::BM * BK + BK * BN);
+template <bool D> auto kernel() {
+  return mma_kernel<Form<D>::BM, Form<D>::WM, Form<D>::WN, D, Form<D>::MINB>;
+}
+
+// The launch's choice, shared by the launch and the attribute query: the
+// form by M; for the decode form, the K slice (a multiple of BK) that
+// brings strips x slices to about DECODE_BLOCKS.  (kernels/tiled_matmul.py
+// ::plan is the same rule, checked against this one on the card.)
+struct Plan {
+  bool decode;
+  int k_slice, slices;
+  dim3 grid;
+};
+
+inline Plan plan(int M, int N, int K) {
+  const int strips = std::max(1, (N + BN - 1) / BN);
+  if (M > DECODE_ROWS) return {false, K, 1, dim3(strips, (M + TILE_BM - 1) / TILE_BM)};
+  const int steps = (K + BK - 1) / BK;
+  const int want = std::max(1, std::min(steps, (DECODE_BLOCKS + strips - 1) / strips));
+  const int k_slice = std::max(1, (steps + want - 1) / want) * BK;
+  const int slices = std::max(1, (K + k_slice - 1) / k_slice);
+  return {true, k_slice, slices, dim3(strips, slices)};
+}
+
+template <typename F> int with_form(bool decode, F f) {
+  return decode ? f(std::true_type{}) : f(std::false_type{});
+}
+
+int launch(const int8_t* x, const int8_t* y, int32_t* out, int M, int N, int K,
+           cudaStream_t stream) {
+  if ((M + TILE_BM - 1) / TILE_BM > 65535) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(M, N, K);
+  const int vec = ((K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) ? A_VEC : 0) |
+                  ((N % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0) ? B_VEC : 0) |
+                  ((N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) ? OUT_VEC : 0);
+  return with_form(p.decode, [&](auto d) {
+    constexpr bool D = decltype(d)::value;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel<D>(), cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<D>);
+    if (err == cudaSuccess && D)  // the slices add into zeros
+      err = cudaMemsetAsync(out, 0, (size_t)M * N * sizeof(int32_t), stream);
+    if (err != cudaSuccess) return (int)err;
+    kernel<D>()<<<p.grid, kThreads<D>, kSmem<D>, stream>>>(x, y, out, M, N, K, p.k_slice, vec);
+    return (int)cudaGetLastError();
+  });
+}
+
+// info: form (0 tile, 1 decode), k_slice, slices, blocks, threads a block,
+// registers a thread, dynamic shared memory a block, blocks an SM.
+int attributes(int M, int N, int K, int* info) {
+  const Plan p = plan(M, N, K);
+  return with_form(p.decode, [&](auto d) {
+    constexpr bool D = decltype(d)::value;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel<D>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel<D>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem<D>);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel<D>(), kThreads<D>,
+                                                          kSmem<D>);
+    const int vals[8] = {D ? 1 : 0, p.k_slice, p.slices, (int)(p.grid.x * p.grid.y),
+                         kThreads<D>, err == cudaSuccess ? attr.numRegs : 0, kSmem<D>, blocks};
+    for (int i = 0; i < 8; ++i) info[i] = vals[i];
+    return (int)err;
+  });
+}
+
+}  // namespace i8
+
+// ---------------------------------------------------------------------------
+// Floats: the launch.
 
 inline dim3 grid_for(int M, int N) { return dim3((N + BN - 1) / BN, (M + BM - 1) / BM); }
 
@@ -228,17 +481,16 @@ extern "C" {
 // x (M, K) and y (K, N) row-major and contiguous, out (M, N) row-major.
 // in_type: 0 f32, 1 bf16, 2 f16, 3 int8; out_type: 0 f32, 1 bf16, 2 f16,
 // 4 int32 (int8 operands take int32 out only).  Returns a CUDA error code,
-// cudaErrorInvalidValue for a pair of types it does not take.
+// cudaErrorInvalidValue for a pair of types it does not take or a grid
+// taller than 65535 row tiles (64 rows a tile for floats, 128 for int8).
 int tiled_matmul(const void* x, const void* y, void* out, int in_type, int out_type, int M,
                  int N, int K, cudaStream_t stream) {
-  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   if (in_type == 3) {
     if (out_type != 4) return (int)cudaErrorInvalidValue;
-    matmul_i8_kernel<<<grid_for(M, N), THREADS, 0, stream>>>(
-        static_cast<const int8_t*>(x), static_cast<const int8_t*>(y),
-        static_cast<int32_t*>(out), M, N, K);
-    return (int)cudaGetLastError();
+    return i8::launch(static_cast<const int8_t*>(x), static_cast<const int8_t*>(y),
+                      static_cast<int32_t*>(out), M, N, K, stream);
   }
+  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
 #define TM_OUT(IN)                                                              \
   switch (out_type) {                                                           \
     case 0: return launch_f32acc<IN, float>(x, y, out, M, N, K, stream);         \
@@ -254,6 +506,14 @@ int tiled_matmul(const void* x, const void* y, void* out, int in_type, int out_t
   }
 #undef TM_OUT
   return (int)cudaErrorInvalidValue;
+}
+
+// The int8 launch that tiled_matmul would make for (M, N, K), into info[8]:
+// form (0 tile, 1 decode), K slice, slices, blocks, threads a block,
+// registers a thread, dynamic shared memory a block, blocks an SM.
+// Launches nothing.
+int tiled_matmul_i8_attributes(int M, int N, int K, int* info) {
+  return i8::attributes(M, N, K, info);
 }
 
 const char* cuda_error_string(int code) {

@@ -5,18 +5,23 @@ Replaces the TPU kernel ``repro/kernels/tiled_matmul.py::tiled_matmul``,
 the paper's Gemmini ``tiled_matmul_auto``: int8 x int8 accumulated exactly
 in int32 (the float -> int rewrite's GEMM, under
 ``core.quantize.quantized_matmul``), and f32 / bf16 / f16 accumulated in
-f32.  The card form is one block per 64x64 output tile with K staged
-through shared memory; the source note in ``csrc/tiled_matmul.cu`` says
-why and what bounds it.  ``plain`` is ``ref.tiled_matmul``, which the CPU
-runs and the card uses only to check the kernel.  The reference's tile
-knobs (``bm``, ``bn``, ``bk``) have no counterpart: the tile is the
-kernel's own.
+f32.  int8 runs on the tensor cores (``mma.sync`` m16n8k32, cp.async
+tiles) in one of two forms that the C entry picks by M (:func:`plan`):
+a 128x128 tile a block for M > 16, and for M <= 16 (a decode step) a
+16-row strip a block with K split into slices whose int32 partials are
+added into a zeroed output.  Floats run on the FMA pipe, one block per
+64x64 tile.  The source note in ``csrc/tiled_matmul.cu`` says why and
+what bounds each.  ``plain`` is ``ref.tiled_matmul``, which the CPU runs
+and the card uses only to check the kernel.  The reference's tile knobs
+(``bm``, ``bn``, ``bk``) have no counterpart: the tile is the kernel's
+own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,13 +36,59 @@ _IN = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 _OUT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 4}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# the int8 forms' constants (csrc/tiled_matmul.cu, namespace i8)
+DECODE_ROWS = 16        # M up to this takes the decode form
+_BN, _BK = 128, 64      # output columns a block; k bytes a pipeline stage
+_DECODE_BLOCKS = 528    # the decode grid's target: 4 blocks x 132 SMs
+
+
+class Plan(NamedTuple):
+    """The int8 launch for (M, N, K): ``form`` "tile" or "decode", and the
+    K slices ``[s * k_slice, min((s + 1) * k_slice, K))`` for s < ``slices``
+    that the blocks of one column strip share."""
+    form: str
+    k_slice: int
+    slices: int
+
+
+def plan(M: int, N: int, K: int) -> Plan:
+    """The int8 kernel's form and K split, the rule of the C entry's
+    ``i8::plan`` (held to it on the card): M > 16 takes the tile form over
+    all of K; M <= 16 the decode form, with slices of a multiple of 64 that
+    bring (column strips x slices) to about 528 blocks."""
+    if M > DECODE_ROWS:
+        return Plan("tile", K, 1)
+    strips = max(1, -(-N // _BN))
+    steps = -(-K // _BK)
+    want = max(1, min(steps, -(-_DECODE_BLOCKS // strips)))
+    k_slice = max(1, -(-steps // want)) * _BK
+    return Plan("decode", k_slice, max(1, -(-K // k_slice)))
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tiled_matmul")
     lib.tiled_matmul.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.tiled_matmul.restype = _I
+    lib.tiled_matmul_i8_attributes.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.tiled_matmul_i8_attributes.restype = _I
     return lib
+
+
+def int8_kernel_attributes(M: int, N: int, K: int) -> dict:
+    """The int8 launch the C entry makes for (M, N, K), as it reports it:
+    its form and K split, blocks, threads, registers a thread, dynamic
+    shared memory a block and the blocks one SM holds (the CUDA occupancy
+    query).  Needs the card; launches nothing."""
+    lib = _lib()
+    info = (_I * 8)()
+    _build.check(lib, lib.tiled_matmul_i8_attributes(M, N, K, info),
+                 "tiled_matmul attribute query")
+    form, k_slice, slices, blocks, threads, regs, smem, per_sm = info
+    return {"form": ("tile", "decode")[form], "k_slice": k_slice,
+            "slices": slices, "grid_blocks": blocks,
+            "threads_per_block": threads, "registers_per_thread": regs,
+            "smem_bytes_per_block": smem, "blocks_per_sm": per_sm}
 
 
 def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, out_dtype=None
@@ -46,7 +97,9 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, out_dtype=None
     tensors of one type.
 
     int8 operands give int32 (the only output they take), exact for
-    K < 131072; f32, bf16 and f16 operands accumulate in f32 and give
+    K < 131072, on the tensor cores in the form :func:`plan` names (the
+    decode form zeroes the output on the stream before its one kernel);
+    f32, bf16 and f16 operands accumulate in f32 and give
     ``out_dtype`` (default ``x.dtype``) in f32, bf16 or f16.  Raises on a
     CPU tensor, mixed or other types, and anything else it does not take.
     """

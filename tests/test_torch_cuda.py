@@ -275,6 +275,72 @@ def test_matmul_kernel_matches_plain_on_card(card, rng, dtype, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [130, 272])
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 33, 129, 2048, 8192])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128, 129])
+def test_matmul_int8_forms_match_plain_on_card(card, rng, m, k, n):
+    """Both int8 forms (decode for M <= 16, tile above), with K and N on
+    and off the 16-byte load path, K = 0 (zeros) and a ragged last column
+    strip: one
+    launch, bit-exact with the plain version on the card and the CPU, in
+    the form and K split that ``plan`` names."""
+    x = _t(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(card)
+    y = _t(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(card)
+    before = mm_mod.launches
+    got = mm_mod.tiled_matmul(x, y)
+    torch.cuda.synchronize()
+    assert mm_mod.launches == before + 1
+    assert torch.equal(got, ref.tiled_matmul(x, y))
+    assert torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(), y.cpu()))
+    attrs = mm_mod.int8_kernel_attributes(m, n, k)
+    assert (attrs["form"], attrs["k_slice"], attrs["slices"]) == tuple(
+        mm_mod.plan(m, n, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [131056, 131071])
+@pytest.mark.parametrize("m", [4, 33])
+@pytest.mark.parametrize("vx,vy", [(-128, -128), (127, -128)])
+def test_matmul_int8_extremes_on_card(card, m, k, vx, vy):
+    """The largest sums the int32 accumulator takes: K = 131071 (and the
+    16-byte path's 131056) of -128 x -128 or 127 x -128, a few columns."""
+    for n in (5, 16):
+        x = torch.full((m, k), vx, dtype=torch.int8, device=card)
+        y = torch.full((k, n), vy, dtype=torch.int8, device=card)
+        got = mm_mod.tiled_matmul(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.tiled_matmul(x, y))
+        assert int(got[0, 0]) == k * vx * vy
+
+
+@pytest.mark.cuda
+def test_matmul_int8_decode_form_on_card(card, rng):
+    """A decode step's GEMM (M = 4, K = 8192, N = 2048): the decode form,
+    one launch (its zeroing memset is not one), the CPU's result."""
+    x = _t(rng.integers(-128, 128, (4, 8192)).astype(np.int8))
+    y = _t(rng.integers(-128, 128, (8192, 2048)).astype(np.int8))
+    assert mm_mod.plan(4, 2048, 8192).form == "decode"
+    ops.reset_launch_counts()
+    got = mm_mod.tiled_matmul(x.to(card), y.to(card))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tiled_matmul"] == 1
+    assert torch.equal(got.cpu(), ref.tiled_matmul(x, y))
+
+
+@pytest.mark.cuda
+def test_matmul_int8_attributes_follow_plan(card):
+    """The C entry's own choice of form and K split, reported by its
+    attribute query, is ``plan``'s at the serving GEMMs and edge shapes."""
+    for m in (1, 4, 16, 17, 999):
+        for k, n in ((2048, 8384), (4096, 2048), (8192, 2048),
+                     (2048, 32000), (0, 7), (1, 1), (131071, 5)):
+            a = mm_mod.int8_kernel_attributes(m, n, k)
+            p = mm_mod.plan(m, n, k)
+            assert (a["form"], a["k_slice"], a["slices"]) == tuple(p)
+            assert a["registers_per_thread"] > 0 and a["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
 def test_quantized_matmul_on_card_equals_cpu(card, rng):
     from repro_torch.core import quantized_matmul
 
