@@ -19,7 +19,10 @@ zeroed just before it and read just after:
     frame on its path (fused, gated or full sweep).
 
 It also holds the fused kernel's f16 and int8 gradient tiers to the
-card's staged path bit for bit (int8 to the CPU too), gates per-family F1
+card's staged path bit for bit (int8 to the CPU too), and a hysteresis
+of 45, 60 and 100 passes in every tier (past the tile's shared memory,
+through device memory) to the plain version with its launch schedule
+traced (``fused_long_hysteresis``), gates per-family F1
 at 240x320 against ``benchmarks/baselines/f1_baseline.json`` (the f32
 detector, and the f16 / int8 tiers staged and fused against its
 "quantized" section), streams under
@@ -35,9 +38,10 @@ cut against the CPU, the full model serving 8 requests through ``Engine``
 in bf16 (and f32), the same traffic on ``quantize_weights_int8`` weights
 dequantized to bf16, and the float -> int rewrite's GEMM
 (``matmul_phases``): the matmul kernel (int8 on the tensor cores, in its
-tile and split-K decode forms) against its plain version and
-``quantized_matmul`` at the model's full-width GEMMs, with device times
-beside ``torch._int_mm``'s and a profiler trace of both; the LM kernels'
+tile and split-K decode forms; bf16 / f16 on ``wgmma``) against its plain
+version and ``quantized_matmul`` at the model's full-width GEMMs, with
+device times beside ``torch._int_mm``'s and ``torch.mm``'s and profiler
+traces of each; the LM kernels'
 times beside SDPA and their bounds, and one attention launch profiled
 (device time, TFLOP/s, registers, blocks an SM).
 
@@ -834,43 +838,63 @@ def matmul_phases(cuda_ms, params) -> dict:
         checks.append({"kernel": "quantized_matmul", "shape": [m, k, n],
                        "bit_exact_vs_cpu": same, "ok": same})
     float_err, f32 = 0.0, torch.float32
+
+    def float_check(x, y, **tags):
+        nonlocal float_err
+        dt = x.dtype
+        (m, k), n = x.shape, y.shape[1]
+        got = mm_mod.tiled_matmul(x, y)
+        want = ref.tiled_matmul(x, y)
+        k32 = got if dt == f32 else mm_mod.tiled_matmul(x, y,
+                                                        out_dtype=f32)
+        p32 = want if dt == f32 else ref.tiled_matmul(x, y,
+                                                      out_dtype=f32)
+        x64, y64 = x.double(), y.double()
+        exact = x64 @ y64
+        scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
+        e_k = float(((k32.double() - exact).abs() / scale).max())
+        e_p = float(((p32.double() - exact).abs() / scale).max())
+        g, w = got.double(), want.double()
+        err = float((g - w).abs().max())
+        c = {"kernel": "tiled_matmul", "dtype": str(dt)[6:],
+             "shape": [m, k, n], **tags, "max_abs_err_vs_plain": err,
+             "f32_sum_rel_err_vs_f64": e_k,
+             "plain_f32_sum_rel_err_vs_f64": e_p,
+             "ratio_to_plain_err": (e_k / e_p if e_p else
+                                    0.0 if e_k == 0 else math.inf),
+             "tol": "f32 sums within 2x the plain's error vs f64"}
+        ok = e_k <= 2.0 * e_p + 1e-12
+        if dt != f32:
+            mant = 7 if dt == torch.bfloat16 else 10
+            mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+            once = torch.equal(got, k32.to(dt))
+            c.update(output_is_its_f32_sum_rounded_once=once,
+                     elements_beyond_1_output_ulp=int(
+                         ((g - w).abs() > ulp).sum()),
+                     elements=g.numel())
+            c["tol"] += "; output = its f32 sum rounded to nearest even"
+            ok = ok and once
+        c["ok"] = ok
+        float_err = max(float_err, err)
+        checks.append(c)
+
     for dt in (f32, torch.bfloat16, torch.float16):
         for m, k, n in odd + [(999, 2048, 8384)]:
-            x, y = normal(m, k, dtype=dt), normal(k, n, dtype=dt)
-            got = mm_mod.tiled_matmul(x, y)
-            want = ref.tiled_matmul(x, y)
-            k32 = got if dt == f32 else mm_mod.tiled_matmul(x, y,
-                                                            out_dtype=f32)
-            p32 = want if dt == f32 else ref.tiled_matmul(x, y,
-                                                          out_dtype=f32)
-            x64, y64 = x.double(), y.double()
-            exact = x64 @ y64
-            scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
-            e_k = float(((k32.double() - exact).abs() / scale).max())
-            e_p = float(((p32.double() - exact).abs() / scale).max())
-            g, w = got.double(), want.double()
-            err = float((g - w).abs().max())
-            c = {"kernel": "tiled_matmul", "dtype": str(dt)[6:],
-                 "shape": [m, k, n], "max_abs_err_vs_plain": err,
-                 "f32_sum_rel_err_vs_f64": e_k,
-                 "plain_f32_sum_rel_err_vs_f64": e_p,
-                 "tol": "f32 sums within 2x the plain's error vs f64"}
-            ok = e_k <= 2.0 * e_p + 1e-12
-            if dt != f32:
-                mant = 7 if dt == torch.bfloat16 else 10
-                mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
-                ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
-                once = torch.equal(got, k32.to(dt))
-                c.update(output_is_its_f32_sum_rounded_once=once,
-                         elements_beyond_1_output_ulp=int(
-                             ((g - w).abs() > ulp).sum()),
-                         elements=g.numel())
-                c["tol"] += "; output = its f32 sum rounded to nearest even"
-                ok = ok and once
-            c["ok"] = ok
-            float_err = max(float_err, err)
-            checks.append(c)
-    emit({"phase": "matmul_vs_plain", "checks": checks})
+            float_check(normal(m, k, dtype=dt), normal(k, n, dtype=dt))
+    # bf16 / f16 run on the tensor cores (wgmma, chains of
+    # mm_mod.F16_CHAIN_K k): the int8 sweep's shapes, and zamba2's
+    # full-width GEMMs on the model's own layer-0 weights
+    for dt in (torch.bfloat16, torch.float16):
+        for m, k, n in sweep:
+            float_check(normal(m, k, dtype=dt), normal(k, n, dtype=dt),
+                        case="sweep")
+        for name, w in weights.items():
+            for m in ROWS:
+                float_check(normal(m, w.shape[0], dtype=dt), w.to(dt),
+                            case=name)
+    emit({"phase": "matmul_vs_plain", "f16_chain_k": mm_mod.F16_CHAIN_K,
+          "checks": checks})
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise SystemExit(f"matmul kernel checks failed: {bad}")
@@ -922,8 +946,13 @@ def matmul_phases(cuda_ms, params) -> dict:
     # M = 4 and 16 ten of the kernel (its decode form and the memset
     # before it; M sets the decode form's atomics, not its reads).
     # The timer's floor is the device time of one launch of a one-element
-    # fill.  bf16 / f32 at in_proj: torch.mm (TF32 off) and the bf16
-    # tensor-core or f32 rate.
+    # fill.  bf16 / f16 at every GEMM and M (the wgmma kernel, on the
+    # model's layer-0 weights): torch.mm beside them, the bf16 tensor-core
+    # rate, the C entry's tile, chain, grid, registers and shared memory,
+    # TFLOP/s; at in_proj ten calls of the kernel and of torch.mm traced,
+    # the kernel's launch (grid, block, registers, shared memory as the
+    # profiler records them) held to the attribute query.  f32 at in_proj:
+    # torch.mm (TF32 off) and the f32 rate.
     times, int8_traced = [], {}
     one = torch.zeros(1, device=dev)
     timer_floor_ms = device_ms(lambda: one.fill_(1.0))
@@ -956,24 +985,76 @@ def matmul_phases(cuda_ms, params) -> dict:
     x, y = ints(16, K), ints(K, N)
     int8_traced["M=16"] = {"shape": [16, K, N], "kernel": traced(
         lambda: mm_mod.tiled_matmul(x, y), "int8_mm_kernel_16")}
-    for dt, rate in ((torch.bfloat16, BF16_FLOPS_PER_S),
-                     (torch.float32, F32_FLOPS_PER_S)):
-        x, y = normal(999, K, dtype=dt), normal(K, N, dtype=dt)
-        size = x.element_size()
-        b, by = bound_ms(size * (999 * K + K * N + 999 * N),
-                         2.0 * 999 * N * K, rate)
-        times.append({
-            "gemm": "mamba2_in_proj", "dtype": str(dt)[6:],
-            "shape": [999, K, N],
-            "ms": device_ms(lambda: ops.tiled_matmul(x, y)),
-            "plain_ms": device_ms(lambda: ref.tiled_matmul(x, y), n=3),
-            "library_ms": device_ms(lambda: torch.mm(x, y)),
-            "library": "torch.mm", "bound_ms": b, "bound_by": by})
+    def launch_seen(trace_name):
+        """The wgmma kernel's launches in a trace that ``traced`` wrote:
+        grid blocks, threads, registers and dynamic shared memory, as the
+        profiler recorded them (None where it records none)."""
+        path = ROOT / "build" / f"trace_{trace_name}.json"
+        seen = set()
+        for e in json.loads(path.read_text())["traceEvents"]:
+            a = e.get("args", {})
+            if e.get("cat") == "kernel" and "wg::mma_kernel" in e["name"]:
+                seen.add((math.prod(a["grid"]) if "grid" in a else None,
+                          math.prod(a["block"]) if "block" in a else None,
+                          a.get("registers per thread"),
+                          a.get("dynamic shared memory",
+                                a.get("shared memory"))))
+        return [list(v) for v in sorted(seen, key=str)]
+
+    f16_traced, bad = {}, []
+    for dt in (torch.bfloat16, torch.float16):
+        for name, w in weights.items():
+            K, N = w.shape
+            for m in ROWS:
+                x, y = normal(m, K, dtype=dt), w.to(dt)
+                b, by = bound_ms(2 * (m * K + K * N + m * N),
+                                 2.0 * m * N * K, BF16_FLOPS_PER_S)
+                row = {"gemm": name, "dtype": str(dt)[6:],
+                       "shape": [m, K, N],
+                       "ms": device_ms(lambda: mm_mod.tiled_matmul(x, y)),
+                       "plain_ms": device_ms(
+                           lambda: ref.tiled_matmul(x, y), n=3),
+                       "library_ms": device_ms(lambda: torch.mm(x, y)),
+                       "library": "torch.mm", "bound_ms": b, "bound_by": by,
+                       **mm_mod.f16_kernel_attributes(m, N, K)}
+                row["tflops"] = 2.0 * m * N * K / row["ms"] / 1e9
+                times.append(row)
+                if name != "mamba2_in_proj":
+                    continue
+                key = f"{row['dtype']} M={m}"
+                f16_traced[key] = {
+                    "shape": [m, K, N],
+                    "kernel": traced(lambda: mm_mod.tiled_matmul(x, y),
+                                     f"f16_mm_kernel_{key[:4]}_{m}"),
+                    "torch_mm": traced(lambda: torch.mm(x, y),
+                                       f"f16_mm_torch_mm_{key[:4]}_{m}"),
+                    "launches_seen": launch_seen(
+                        f"f16_mm_kernel_{key[:4]}_{m}")}
+                want = [row["grid_blocks"], row["threads_per_block"],
+                        row["registers_per_thread"],
+                        row["smem_bytes_per_block"]]
+                if any(v != want for v in f16_traced[key]["launches_seen"]
+                       if None not in v) or not f16_traced[key][
+                           "launches_seen"]:
+                    bad.append(key)
+    K, N = weights["mamba2_in_proj"].shape
+    x, y = normal(999, K), normal(K, N)
+    b, by = bound_ms(4 * (999 * K + K * N + 999 * N), 2.0 * 999 * N * K,
+                     F32_FLOPS_PER_S)
+    times.append({
+        "gemm": "mamba2_in_proj", "dtype": "float32", "shape": [999, K, N],
+        "ms": device_ms(lambda: ops.tiled_matmul(x, y)),
+        "plain_ms": device_ms(lambda: ref.tiled_matmul(x, y), n=3),
+        "library_ms": device_ms(lambda: torch.mm(x, y)),
+        "library": "torch.mm", "bound_ms": b, "bound_by": by})
     emit({"phase": "matmul_times", "note": "device ms of one launch, the "
           "least of 10 (the plain version's of 3); the plain version "
           "multiplies int8 in float64 and floats in f32 (TF32 off)",
           "timer_floor_ms": timer_floor_ms, "rows": times,
-          "int8_traced": int8_traced})
+          "int8_traced": int8_traced, "f16_traced": f16_traced})
+    if bad:
+        raise SystemExit(f"the bf16 / f16 launch differs from its attribute "
+                         f"query: {bad}")
     main = times[0]     # int8 at in_proj, M = 999: the 1000-token prefill
     return {"name": "tiled_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
@@ -1272,6 +1353,74 @@ def main() -> int:
     bad = [c for c in tier_checks if not c["ok"]]
     if bad:
         raise SystemExit(f"fused_detect tier checks failed: {bad}")
+
+    # A hysteresis longer than the tile's shared memory holds (above 44
+    # passes, 54 with the fused 7x7 masks) runs through two planes in
+    # device memory: in every tier at 45, 60 and 100 passes on the 8 main
+    # frames, the kernel is one launch, bit-exact with its plain version on
+    # the card; one traced call shows the launch schedule the card ran
+    # (the tile kernel, then fused_mod.hysteresis_schedule's hysteresis
+    # launches, the keep kernel, the scan and the scatter), and the 8-pass
+    # default keeps its single tile kernel.  Times: device ms of one call.
+    def fused_schedule(lcfg, name):
+        t = gpu_trace(lambda: fused_mod.fused_detect(
+            frames_dev, cfg=lcfg, edge_threshold=250.0, max_edges=cap),
+            name, 1, focus=("canny_tile_kernel", "hysteresis_kernel",
+                            "keep_kernel", "scan_kernel", "scatter_kernel"))
+        return {k: v["calls"] for k, v in t["focus"].items()}
+
+    long_checks = []
+    default_cfg = CannyConfig()
+    default_kernels = fused_schedule(default_cfg, "fused_hysteresis_8")
+    default_ok = default_kernels == {
+        "canny_tile_kernel": 1, "hysteresis_kernel": 0, "keep_kernel": 0,
+        "scan_kernel": 1, "scatter_kernel": 1}
+    for tier_name, kw in (("f32", {}), ("integer", {"integer": True}),
+                          ("f16", {"grad_dtype": "f16"}),
+                          ("int8", {"grad_dtype": "int8"}),
+                          ("f32_fused_masks", {"fused": True})):
+        for iters in (45, 60, 100):
+            lcfg = CannyConfig(hysteresis_iters=iters, **kw)
+            schedule = fused_mod.hysteresis_schedule(lcfg)
+            before = fused_mod.launches
+            got = fused_mod.fused_detect(frames_dev, cfg=lcfg,
+                                         edge_threshold=250.0, max_edges=cap)
+            torch.cuda.synchronize()
+            n_launch = fused_mod.launches - before
+            want = ref.fused_detect(frames_dev, cfg=lcfg,
+                                    edge_threshold=250.0, max_edges=cap)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            kernels = fused_schedule(lcfg, f"fused_hysteresis_{tier_name}_"
+                                           f"{iters}")
+            ran = {"canny_tile_kernel": 1,
+                   "hysteresis_kernel": len(schedule),
+                   "keep_kernel": 1 if schedule else 0,
+                   "scan_kernel": 1, "scatter_kernel": 1}
+            long_checks.append({
+                "kernel": "fused_detect", "tier": tier_name,
+                "hysteresis_iters": iters,
+                "path": "planes" if schedule else "tile",
+                "passes_a_launch": schedule, "kernels_traced": kernels,
+                "launches": n_launch, "counts": got[2].tolist(),
+                "bit_exact_vs_card_plain": same,
+                "ms": device_ms(lambda c=lcfg: fused_mod.fused_detect(
+                    frames_dev, cfg=c, edge_threshold=250.0,
+                    max_edges=cap)),
+                "ok": same and n_launch == 1 and kernels == ran})
+    emit({"phase": "fused_long_hysteresis", "hw": [H, W],
+          "batch": DEPLOY_BATCH, "note": "device ms of one call, the least "
+          "of 10; counts: edges kept a frame",
+          "default_8_passes": {
+              "kernels_traced": default_kernels,
+              "ms": device_ms(lambda: fused_mod.fused_detect(
+                  frames_dev, cfg=default_cfg, edge_threshold=250.0,
+                  max_edges=cap)),
+              "ok": default_ok},
+          "checks": long_checks})
+    bad = [c for c in long_checks if not c["ok"]]
+    if bad or not default_ok:
+        raise SystemExit(f"fused_detect long hysteresis failed: {bad}, "
+                         f"default path {default_kernels}")
 
     # --- 3. the main path at 720x1280, batch 8 -----------------------------
     # Each path runs with the launch counts zeroed just before it and read

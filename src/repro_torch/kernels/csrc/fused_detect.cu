@@ -1,6 +1,7 @@
 // Fused detection front end: Canny -> edge threshold -> rho-corridor filter
-// -> raster-order compaction, in one C entry (three short kernels, and a
-// pre-pass for the int8 gradient tier).
+// -> raster-order compaction, in one C entry (three short kernels, a
+// pre-pass for the int8 gradient tier, and for a long hysteresis two more
+// kernels, below).
 //
 // Replaces the TPU kernel repro/kernels/fused_detect.py::fused_detect (body
 // _fused_kernel).  The TPU kernel holds one whole frame in VMEM and runs the
@@ -20,7 +21,8 @@
 //
 // The three kernels (after the int8 tier's pre-pass):
 //   1. canny_tile_kernel: one block per tile; writes one 32-bit keep mask
-//      per (row, tile column) segment, a warp ballot over a tile row;
+//      per (row, tile column) segment, a warp ballot over a tile row (or,
+//      for a long hysteresis, each pixel's strong/weak state: below);
 //   2. scan_kernel: one block per frame; the exclusive prefix sum of the
 //      segments' popcounts in raster order (row-major over (row, segment),
 //      since 2-D tiles are not raster order), and the frame's count
@@ -39,6 +41,22 @@
 // cross-multiplied tan tests; the corridor product rounds as the
 // reference's K=2 dot does on the CPU, x*c and y*s each rounded, then one
 // rounded add.
+//
+// A long hysteresis.  The window's side is 32 + 2 (iters + 4) and every
+// in-tile pass sweeps it, and past 44 passes (54 with the fused 7x7 masks)
+// its planes no longer fit the 227 KB of shared memory a block may use
+// (smem_bytes > MAX_SMEM).  Such a config, and only such a config, sends
+// the hysteresis through two (N, H, W) planes of one byte a pixel that the
+// caller allocates: the tile kernel runs at halo 0 (no in-tile passes) and
+// writes each pixel's strong/weak bits; hysteresis_kernel then runs up to
+// HYST_HALO Jacobi passes a launch, each HYST_TILE core read with a halo
+// of HYST_HALO (zeros outside the frame, the reference's zero-shifted
+// dilation), ping-ponging between the planes until every pass is done;
+// keep_kernel applies the edge threshold and the corridors to the final
+// plane and writes the same keep words, and the scan and scatter follow.
+// Jacobi passes compose exactly, so the edges are those of the tile path
+// and of the staged detector at any pass count.  Every config that fits
+// keeps the single tile kernel, the 8-pass default among them.
 //
 // The gradient tiers (CannyConfig.grad_dtype) take the same route.  f16:
 // the frame cast to f16, each conv an __hfma chain in conv2d.cu's tap
@@ -74,6 +92,10 @@ constexpr int SCATTER_THREADS = 256;
 constexpr int PRE_THREADS = 256;
 constexpr int GAUSS_NORM = 159;
 constexpr size_t MAX_SMEM = 232448;  // what one block may use on Hopper
+constexpr int HYST_TILE = 64;        // a hysteresis launch's core tile side
+constexpr int HYST_HALO = 16;        // its halo: the most passes one launch runs
+constexpr int HYST_SIDE = HYST_TILE + 2 * HYST_HALO;
+constexpr int HYST_ROWS = 16;        // warps a hysteresis block
 
 // Window radii around the tile: strong/weak bits, magnitude, Gauss output,
 // image.  The conv radius is 3 either way (5x5 Gauss + 3x3 Sobel, or the
@@ -237,16 +259,18 @@ __device__ __forceinline__ bool in_corridor(const float* __restrict__ cor, int n
 // Phase 1.  Bits of the s-planes: 1 = strong, 2 = weak (full) or edge
 // (paper).  m0: the Gauss (1,5,5) or the fused (3,7,7) masks; m1: the
 // Sobel pair (2,3,3) or unused; both in the tier's conv type.  amax_bits
-// and nr_max: the int8 tier's per-frame maxima from the pre-pass.
-template <int TIER, bool FUSED, bool PAPER>
+// and nr_max: the int8 tier's per-frame maxima from the pre-pass.  STATE
+// (the long-hysteresis path, launched at iters 0): write each pixel's bits
+// to the (N, H, W) plane `state` in place of keep words.
+template <int TIER, bool FUSED, bool PAPER, bool STATE>
 __global__ void __launch_bounds__(NTHREADS)
 canny_tile_kernel(const float* __restrict__ img,
                   const typename TierTypes<TIER>::Conv* __restrict__ m0,
                   const typename TierTypes<TIER>::Conv* __restrict__ m1,
                   const float* __restrict__ cor, int n_cor,
                   const uint32_t* __restrict__ amax_bits, const int32_t* __restrict__ nr_max,
-                  uint32_t* __restrict__ keep_bits, int H, int W, int nseg, float low,
-                  float high, float edge_thr, int border, int iters) {
+                  uint32_t* __restrict__ keep_bits, uint8_t* __restrict__ state, int H, int W,
+                  int nseg, float low, float high, float edge_thr, int border, int iters) {
   using Conv = typename TierTypes<TIER>::Conv;
   using Mag = typename TierTypes<TIER>::Mag;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -402,8 +426,16 @@ canny_tile_kernel(const float* __restrict__ img,
     }
   }
 
-  // edge weight -> corridor -> one keep word per tile row
   const int x = x0 + threadIdx.x;
+  if constexpr (STATE) {
+    for (int ry = threadIdx.y; ry < TILE; ry += BLOCK_Y) {
+      const int y = y0 + ry;
+      if (y < H && x < W) state[((size_t)n * H + y) * W + x] = cur[(ry + R.s) * ss + threadIdx.x + R.s];
+    }
+    return;
+  }
+
+  // edge weight -> corridor -> one keep word per tile row
   for (int ry = threadIdx.y; ry < TILE; ry += BLOCK_Y) {
     const int y = y0 + ry;
     bool keep = false;
@@ -422,6 +454,77 @@ canny_tile_kernel(const float* __restrict__ img,
     const uint32_t word = __ballot_sync(0xffffffffu, keep);
     if (threadIdx.x == 0 && y < H) keep_bits[((size_t)n * H + y) * nseg + blockIdx.x] = word;
   }
+}
+
+// The long-hysteresis path, 1: up to HYST_HALO Jacobi passes over one
+// HYST_TILE core, read from `src` with a halo of HYST_HALO (zeros outside
+// the frame), written to `dst`.  Pass k of `passes` updates the window of
+// radius passes - k - 1 around the core from the previous pass's values,
+// as canny_tile_kernel's passes do; a warp walks each window row.
+__global__ void __launch_bounds__(32 * HYST_ROWS)
+hysteresis_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int H, int W,
+                  int passes) {
+  __shared__ uint8_t s_b0[HYST_SIDE * HYST_SIDE];
+  __shared__ uint8_t s_b1[HYST_SIDE * HYST_SIDE];
+  const int n = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * HYST_TILE, y0 = blockIdx.y * HYST_TILE;
+  const uint8_t* in = src + (size_t)n * H * W;
+  for (int r = ty; r < HYST_SIDE; r += HYST_ROWS) {
+    const int y = y0 - HYST_HALO + r;
+    for (int c = tx; c < HYST_SIDE; c += 32) {
+      const int x = x0 - HYST_HALO + c;
+      s_b0[r * HYST_SIDE + c] = (y >= 0 && y < H && x >= 0 && x < W) ? in[(size_t)y * W + x] : 0;
+    }
+  }
+  __syncthreads();
+  uint8_t* cur = s_b0;
+  uint8_t* nxt = s_b1;
+  for (int k = 0; k < passes; ++k) {
+    const int lo = HYST_HALO - passes + k + 1, hi = HYST_SIDE - lo;
+    for (int rr = lo + ty; rr < hi; rr += HYST_ROWS) {
+      for (int cc = lo + tx; cc < hi; cc += 32) {
+        uint8_t b = cur[rr * HYST_SIDE + cc];
+        if (b == 2) {  // weak and not yet strong
+          const uint8_t* u = cur + (rr - 1) * HYST_SIDE + cc;
+          const uint8_t* d = cur + (rr + 1) * HYST_SIDE + cc;
+          const uint8_t* h = cur + rr * HYST_SIDE + cc;
+          if ((u[-1] | u[0] | u[1] | h[-1] | h[1] | d[-1] | d[0] | d[1]) & 1) b = 3;
+        }
+        nxt[rr * HYST_SIDE + cc] = b;
+      }
+    }
+    __syncthreads();
+    uint8_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  uint8_t* out = dst + (size_t)n * H * W;
+  for (int r = ty; r < HYST_TILE; r += HYST_ROWS) {
+    const int y = y0 + r;
+    for (int c = tx; c < HYST_TILE; c += 32) {
+      const int x = x0 + c;
+      if (y < H && x < W) out[(size_t)y * W + x] = cur[(r + HYST_HALO) * HYST_SIDE + c + HYST_HALO];
+    }
+  }
+}
+
+// The long-hysteresis path, 2: the final plane -> edge weight -> corridor
+// -> one keep word per (row, 32-pixel segment), a warp ballot each, as
+// canny_tile_kernel's last step.
+__global__ void __launch_bounds__(NTHREADS)
+keep_kernel(const uint8_t* __restrict__ state, const float* __restrict__ cor, int n_cor,
+            uint32_t* __restrict__ keep_bits, int H, int W, int nseg, float edge_thr) {
+  const int n = blockIdx.z, x = blockIdx.x * TILE + threadIdx.x;
+  const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
+  if (y >= H) return;  // a whole warp: one row
+  bool keep = false;
+  if (x < W) {
+    const bool edge = state[((size_t)n * H + y) * W + x] & 1;
+    keep = (edge ? 255.0f : 0.0f) >= edge_thr;
+    if (keep && n_cor > 0) keep = in_corridor(cor, n_cor, (float)x, (float)y);
+  }
+  const uint32_t word = __ballot_sync(0xffffffffu, keep);
+  if (threadIdx.x == 0) keep_bits[((size_t)n * H + y) * nseg + blockIdx.x] = word;
 }
 
 // Phase 2: exclusive raster-order scan of one frame's segment popcounts.
@@ -562,19 +665,20 @@ gauss_qmax_kernel(const float* __restrict__ img, const int32_t* __restrict__ gau
 
 #define FD_TILE_PARAMS                                                                \
   const float *img, const void *m0, const void *m1, const float *cor, int n_cor,      \
-      const uint32_t *amax_bits, const int32_t *nr_max, uint32_t *keep_bits, int N,   \
-      int H, int W, int nseg, float low, float high, float edge_thr, int border,      \
-      int iters, cudaStream_t stream
+      const uint32_t *amax_bits, const int32_t *nr_max, uint32_t *keep_bits,          \
+      uint8_t *state0, uint8_t *state1, int N, int H, int W, int nseg, float low,     \
+      float high, float edge_thr, int border, int iters, cudaStream_t stream
 #define FD_TILE_ARGS                                                                  \
-  img, m0, m1, cor, n_cor, amax_bits, nr_max, keep_bits, N, H, W, nseg, low, high,    \
-      edge_thr, border, iters, stream
+  img, m0, m1, cor, n_cor, amax_bits, nr_max, keep_bits, state0, state1, N, H, W,     \
+      nseg, low, high, edge_thr, border, iters, stream
 
-template <int TIER, bool FUSED, bool PAPER>
-int launch_tiles(FD_TILE_PARAMS) {
+// One launch of canny_tile_kernel at `iters` in-tile passes.
+template <int TIER, bool FUSED, bool PAPER, bool STATE>
+int launch_tile_kernel(FD_TILE_PARAMS) {
   using Conv = typename TierTypes<TIER>::Conv;
   const size_t smem = smem_bytes(iters, PAPER, FUSED);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = canny_tile_kernel<TIER, FUSED, PAPER>;
+  auto kernel = canny_tile_kernel<TIER, FUSED, PAPER, STATE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -583,8 +687,47 @@ int launch_tiles(FD_TILE_PARAMS) {
   const dim3 grid(nseg, (H + TILE - 1) / TILE, N);
   kernel<<<grid, dim3(TILE, BLOCK_Y), smem, stream>>>(
       img, static_cast<const Conv*>(m0), static_cast<const Conv*>(m1), cor, n_cor, amax_bits,
-      nr_max, keep_bits, H, W, nseg, low, high, edge_thr, border, iters);
+      nr_max, keep_bits, state0, H, W, nseg, low, high, edge_thr, border, iters);
   return (int)cudaGetLastError();
+}
+
+// The long-hysteresis path (the full variant only: the paper variant's
+// window does not grow with iters): the tile kernel's bits into state0,
+// ceil(iters / HYST_HALO) hysteresis launches between the two planes, the
+// keep words from the last.
+template <int TIER, bool FUSED>
+int launch_long_hysteresis(FD_TILE_PARAMS) {
+  const int passes = iters;
+  iters = 0;
+  int rc = launch_tile_kernel<TIER, FUSED, false, true>(FD_TILE_ARGS);
+  if (rc != 0) return rc;
+  uint8_t* src = state0;
+  uint8_t* dst = state1;
+  const dim3 grid((W + HYST_TILE - 1) / HYST_TILE, (H + HYST_TILE - 1) / HYST_TILE, N);
+  for (int done = 0; done < passes; done += HYST_HALO) {
+    const int p = passes - done < HYST_HALO ? passes - done : HYST_HALO;
+    hysteresis_kernel<<<grid, dim3(32, HYST_ROWS), 0, stream>>>(src, dst, H, W, p);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    uint8_t* t = src;
+    src = dst;
+    dst = t;
+  }
+  keep_kernel<<<dim3(nseg, (H + BLOCK_Y - 1) / BLOCK_Y, N), dim3(TILE, BLOCK_Y), 0, stream>>>(
+      src, cor, n_cor, keep_bits, H, W, nseg, edge_thr);
+  return (int)cudaGetLastError();
+}
+
+// The path is the tile's wherever its window fits shared memory, else the
+// planes'; the planes are given exactly when they are needed.
+template <int TIER, bool FUSED, bool PAPER>
+int launch_tiles(FD_TILE_PARAMS) {
+  const bool planes = smem_bytes(iters, PAPER, FUSED) > MAX_SMEM;
+  if (planes != (state0 != nullptr) || (state0 == nullptr) != (state1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!planes) return launch_tile_kernel<TIER, FUSED, PAPER, false>(FD_TILE_ARGS);
+  if constexpr (PAPER) return (int)cudaErrorInvalidValue;  // its window never grows
+  else return launch_long_hysteresis<TIER, FUSED>(FD_TILE_ARGS);
 }
 
 template <int TIER>
@@ -625,13 +768,17 @@ extern "C" {
 // (n_cor, 4) rows [cos, sin, rho_lo, rho_hi] or NULL (n_cor 0);
 // keep_bits/offsets: scratch of N * H * ceil(W / 32) words; amax_bits and
 // nr_max: scratch of N words for the int8 tier (nr_max unused with the
-// fused masks), NULL otherwise; cxy (N, max_edges, 3), cw (N, max_edges),
-// counts (N,) are written in full.
+// fused masks), NULL otherwise; state0/state1: two scratch planes of
+// N * H * W bytes where the tile's window does not fit shared memory
+// (fused_detect_smem_bytes above 232448, a long hysteresis), NULL
+// otherwise; cxy (N, max_edges, 3), cw (N, max_edges), counts (N,) are
+// written in full.
 int fused_detect(const float* img, const void* m0, const void* m1, int tier, int fused,
                  int paper, const float* cor, int n_cor, uint32_t* keep_bits,
-                 int32_t* offsets, uint32_t* amax_bits, int32_t* nr_max, float* cxy,
-                 float* cw, int32_t* counts, int N, int H, int W, int max_edges, float low,
-                 float high, float edge_thr, int border, int iters, cudaStream_t stream) {
+                 int32_t* offsets, uint32_t* amax_bits, int32_t* nr_max, uint8_t* state0,
+                 uint8_t* state1, float* cxy, float* cw, int32_t* counts, int N, int H, int W,
+                 int max_edges, float low, float high, float edge_thr, int border, int iters,
+                 cudaStream_t stream) {
   if (iters < 0) iters = 0;
   const int nseg = (W + TILE - 1) / TILE;
   int rc;

@@ -5,9 +5,11 @@ Replaces the TPU kernel ``repro/kernels/fused_detect.py::fused_detect``
 (kernel A of the fused hot path): frames in, the compacted and
 corridor-filtered edge list out, with no edge map in device memory.  The
 card form tiles the frame with a halo and compacts in raster order across
-tiles; the source note in ``csrc/fused_detect.cu`` says why and what bounds
-it.  ``plain`` is ``ref.fused_detect``, which the CPU runs and the card uses
-only to check the kernel.
+tiles; a hysteresis whose tile window does not fit shared memory runs
+its passes through two planes in device memory instead
+(:func:`hysteresis_schedule`).  The source note in ``csrc/fused_detect.cu``
+says why and what bounds it.  ``plain`` is ``ref.fused_detect``, which the
+CPU runs and the card uses only to check the kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ launches = 0
 
 TILE = 32
 MAX_SMEM = 232448   # shared memory one block may use on Hopper
+HYST_HALO = 16      # the most passes one hysteresis launch runs (HYST_HALO in the .cu)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -33,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_detect")
     lib.fused_detect.argtypes = [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
-                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                                 _I, _I, _P]
+                                 _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                 _F, _F, _I, _I, _P]
     lib.fused_detect.restype = _I
     lib.fused_detect_smem_bytes.argtypes = [_I, _I, _I]
     lib.fused_detect_smem_bytes.restype = ctypes.c_size_t
@@ -63,6 +66,18 @@ def smem_bytes(iters: int, paper: bool, fused: bool) -> int:
     return b + 2 * _align16(ss * ss)
 
 
+def hysteresis_schedule(cfg) -> list[int]:
+    """The passes of each hysteresis launch the kernel makes for a
+    ``CannyConfig``: none where its tile's window fits shared memory
+    (:func:`smem_bytes`, the C entry's rule; the passes then run inside
+    the tile kernel), else ``hysteresis_iters`` in launches of at most 16
+    passes through two planes in device memory."""
+    iters = max(cfg.hysteresis_iters, 0)
+    if smem_bytes(iters, cfg.variant == "paper", cfg.fused) <= MAX_SMEM:
+        return []
+    return [min(HYST_HALO, iters - d) for d in range(0, iters, HYST_HALO)]
+
+
 # the C entry's tier codes: f32, the integer rewrite, f16, int8
 _TIERS = {"f32": 0, "f16": 2, "int8": 3}
 
@@ -82,17 +97,12 @@ def tier(cfg) -> int:
 
 
 def check_config(cfg) -> None:
-    """Raise on a ``CannyConfig`` the kernel does not take, before any work
-    on the card: a hysteresis halo whose tile does not fit shared memory
-    (the plain version covers it on the CPU), or a config no path takes.
-    Every gradient tier (f32, f16, int8) and the integer rewrite run."""
+    """Raise on a ``CannyConfig`` no path takes, before any work on the
+    card.  Every gradient tier (f32, f16, int8), the integer rewrite and
+    any ``hysteresis_iters`` run: a hysteresis whose tile does not fit
+    shared memory goes through device memory (:func:`hysteresis_schedule`).
+    """
     tier(cfg)
-    need = smem_bytes(cfg.hysteresis_iters, cfg.variant == "paper", cfg.fused)
-    if need > MAX_SMEM:
-        raise NotImplementedError(
-            f"the fused_detect kernel's tile for hysteresis_iters="
-            f"{cfg.hysteresis_iters} needs {need} bytes of shared memory, "
-            f"more than the {MAX_SMEM} a block may use")
 
 
 def fused_detect(image: torch.Tensor, corridors: torch.Tensor | None = None,
@@ -104,7 +114,9 @@ def fused_detect(image: torch.Tensor, corridors: torch.Tensor | None = None,
     count; ``counts`` (...) int32 the rows kept, ``min(edges, max_edges)``.
     ``corridors`` is an optional (C, 4) f32 tensor on the same card, shared
     by the batch.  Raises on a config the kernel does not take
-    (:func:`check_config`), on a CPU tensor, and on anything else.
+    (:func:`check_config`), on a CPU tensor, and on anything else.  A
+    hysteresis that :func:`hysteresis_schedule` sends through device memory
+    runs through two (N, H, W) byte planes allocated here.
     """
     global launches
     check_config(cfg)
@@ -141,6 +153,9 @@ def fused_detect(image: torch.Tensor, corridors: torch.Tensor | None = None,
     cxy = torch.empty((N, max_edges, 3), dtype=torch.float32, device=dev)
     cw = torch.empty((N, max_edges), dtype=torch.float32, device=dev)
     counts = torch.empty((N,), dtype=torch.int32, device=dev)
+    # the long-hysteresis path's two planes, only where it is taken
+    planes = (torch.empty((2, N, H, W), dtype=torch.uint8, device=dev)
+              if hysteresis_schedule(cfg) else None)
     if N and H and W:
         lib = _lib()
         rc = lib.fused_detect(
@@ -150,7 +165,9 @@ def fused_detect(image: torch.Tensor, corridors: torch.Tensor | None = None,
             0 if cor is None else cor.shape[0],
             bits.data_ptr(), offsets.data_ptr(),
             None if maxima is None else maxima[0].data_ptr(),
-            None if maxima is None else maxima[1].data_ptr(), cxy.data_ptr(),
+            None if maxima is None else maxima[1].data_ptr(),
+            None if planes is None else planes[0].data_ptr(),
+            None if planes is None else planes[1].data_ptr(), cxy.data_ptr(),
             cw.data_ptr(), counts.data_ptr(), N, H, W, max_edges,
             cfg.low, cfg.high, edge_threshold, cfg.border,
             cfg.hysteresis_iters, torch.cuda.current_stream(dev).cuda_stream,

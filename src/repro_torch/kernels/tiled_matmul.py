@@ -9,8 +9,11 @@ f32.  int8 runs on the tensor cores (``mma.sync`` m16n8k32, cp.async
 tiles) in one of two forms that the C entry picks by M (:func:`plan`):
 a 128x128 tile a block for M > 16, and for M <= 16 (a decode step) a
 16-row strip a block with K split into slices whose int32 partials are
-added into a zeroed output.  Floats run on the FMA pipe, one block per
-64x64 tile.  The source note in ``csrc/tiled_matmul.cu`` says why and
+added into a zeroed output.  bf16 and f16 run on the tensor cores too
+(``wgmma`` m64n64k16 from 128-byte-swizzled shared memory, a 128x128 tile
+a block), each k16 product's f32 sum (``F16_CHAIN_K``) added into a
+running f32 sum with compensation; f32 runs on the FMA pipe, one block per 64x64
+tile.  The source note in ``csrc/tiled_matmul.cu`` says why and
 what bounds each.  ``plain`` is ``ref.tiled_matmul``, which the CPU runs
 and the card uses only to check the kernel.  The reference's tile knobs
 (``bm``, ``bn``, ``bk``) have no counterpart: the tile is the kernel's
@@ -41,6 +44,10 @@ DECODE_ROWS = 16        # M up to this takes the decode form
 _BN, _BK = 128, 64      # output columns a block; k bytes a pipeline stage
 _DECODE_BLOCKS = 528    # the decode grid's target: 4 blocks x 132 SMs
 
+# the bf16 / f16 form's constants (csrc/tiled_matmul.cu, namespace wg)
+F16_TILE = (128, 128)   # output rows and columns a block
+F16_CHAIN_K = 16        # k a tensor-core chain sums before its compensated add
+
 
 class Plan(NamedTuple):
     """The int8 launch for (M, N, K): ``form`` "tile" or "decode", and the
@@ -70,8 +77,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tiled_matmul")
     lib.tiled_matmul.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.tiled_matmul.restype = _I
-    lib.tiled_matmul_i8_attributes.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    lib.tiled_matmul_i8_attributes.restype = _I
+    for name in ("tiled_matmul_i8_attributes", "tiled_matmul_f16_attributes"):
+        getattr(lib, name).argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        getattr(lib, name).restype = _I
     return lib
 
 
@@ -91,6 +99,21 @@ def int8_kernel_attributes(M: int, N: int, K: int) -> dict:
             "smem_bytes_per_block": smem, "blocks_per_sm": per_sm}
 
 
+def f16_kernel_attributes(M: int, N: int, K: int) -> dict:
+    """The bf16 / f16 launch the C entry makes for (M, N, K), as it
+    reports it: tile, chain k (``F16_CHAIN_K`` for every K), blocks,
+    threads, registers a thread, dynamic shared memory a block and the
+    blocks one SM holds.  Needs the card; launches nothing."""
+    lib = _lib()
+    info = (_I * 8)()
+    _build.check(lib, lib.tiled_matmul_f16_attributes(M, N, K, info),
+                 "tiled_matmul attribute query")
+    bm, bn, chain, blocks, threads, regs, smem, per_sm = info
+    return {"tile": [bm, bn], "chain_k": chain, "grid_blocks": blocks,
+            "threads_per_block": threads, "registers_per_thread": regs,
+            "smem_bytes_per_block": smem, "blocks_per_sm": per_sm}
+
+
 def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, out_dtype=None
                  ) -> torch.Tensor:
     """Launch the kernel: ``x @ y`` for contiguous (M, K) and (K, N) CUDA
@@ -99,9 +122,10 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, out_dtype=None
     int8 operands give int32 (the only output they take), exact for
     K < 131072, on the tensor cores in the form :func:`plan` names (the
     decode form zeroes the output on the stream before its one kernel);
-    f32, bf16 and f16 operands accumulate in f32 and give
-    ``out_dtype`` (default ``x.dtype``) in f32, bf16 or f16.  Raises on a
-    CPU tensor, mixed or other types, and anything else it does not take.
+    f32, bf16 and f16 operands accumulate in f32 (bf16 and f16 on the
+    tensor cores) and give ``out_dtype`` (default ``x.dtype``) in f32,
+    bf16 or f16.  Raises on a CPU tensor, mixed or other types, and
+    anything else it does not take.
     """
     global launches
     if x.dtype != y.dtype or x.dtype not in _IN:

@@ -233,6 +233,98 @@ def test_fused_kernel_gradient_tiers_bit_exact_on_card(card, rng, cfg, shape):
                 assert torch.equal(a.cpu(), b)
 
 
+def _serpentine(H, W, lo=30.0, hi=120.0, seed=0, noise=True):
+    """A frame whose weak edges form one long serpentine chain from a
+    strong end, bare or under sub-grey noise: hysteresis walks it a pixel
+    a pass."""
+    img = np.zeros((H, W), np.float32)
+    for i, y in enumerate(range(5, H - 5, 6)):
+        img[y:y + 3, 5:W - 5] = lo
+        x = W - 8 if i % 2 == 0 else 5
+        if y + 6 < H - 5:
+            img[y:y + 9, x:x + 3] = lo
+    img[5:8, 5:9] = hi
+    if not noise:
+        return img
+    return img + np.random.default_rng(seed).uniform(0, 1, (H, W)).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [45, 60, 100])
+@pytest.mark.parametrize("cfg", [
+    CannyConfig(), CannyConfig(integer=True), CannyConfig(fused=True),
+    CannyConfig(integer=True, fused=True), CannyConfig(grad_dtype="f16"),
+    CannyConfig(grad_dtype="int8"),
+], ids=["f32", "integer", "fused-masks", "integer-fused", "f16", "int8"])
+def test_fused_kernel_long_hysteresis_bit_exact_on_card(card, rng, cfg,
+                                                        iters):
+    """At 45, 60 and 100 passes (past the tile's shared memory, except the
+    fused masks at 45, whose tile still fits) the kernel is one launch,
+    bit-exact with the plain version on the card and the card's staged
+    path, on scenario frames and a serpentine chain that needs the passes,
+    under noise and bare; the CPU's plain version too, for the integer and
+    int8 tiers."""
+    cfg = dataclasses.replace(cfg, hysteresis_iters=iters)
+    frames = scenario_batch(["converging", "night"], 120, 160)[0]
+    x = _t(np.concatenate([frames, _serpentine(120, 160)[None],
+                           _serpentine(120, 160, noise=False)[None],
+                           rng.uniform(0, 255, (1, 120, 160))
+                           .astype(np.float32)]))
+    cor = _t(np.array([[0.6, 0.8, 5.0, 140.0]], np.float32))
+    counts = None
+    for c, max_edges in ((None, 8192), (cor, 256)):
+        c_dev = None if c is None else c.to(card)
+        before = fused_mod.launches
+        got = fused_mod.fused_detect(x.to(card), c_dev, cfg=cfg,
+                                     edge_threshold=250.0,
+                                     max_edges=max_edges)
+        torch.cuda.synchronize()
+        assert fused_mod.launches == before + 1
+        plain = ref.fused_detect(x.to(card), cfg=cfg, edge_threshold=250.0,
+                                 max_edges=max_edges, corridors=c_dev)
+        w = ref.fused_weights(x.to(card), cfg=cfg, edge_threshold=250.0,
+                              corridors=c_dev)
+        staged = ops.compact_edges(_device_raster(120, 160, card), w,
+                                   max_edges=max_edges)
+        for a, p, st in zip(got, plain, staged):
+            assert torch.equal(a, p) and torch.equal(a, st)
+        counts = got[2] if counts is None else counts
+        if cfg.integer or cfg.grad_dtype == "int8":
+            want = ref.fused_detect(x, cfg=cfg, edge_threshold=250.0,
+                                    max_edges=max_edges, corridors=c)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+    # the serpentine frames' chains need the passes: 15 fewer keep fewer
+    fewer = fused_mod.fused_detect(
+        x.to(card), cfg=dataclasses.replace(cfg, hysteresis_iters=iters - 15),
+        edge_threshold=250.0, max_edges=8192)
+    assert (fewer[2][2:4] < counts[2:4]).all()
+
+
+def _float_contract(x, y):
+    """One launch of the kernel on float operands, held to the float
+    contract: its f32 sums (the f32 output, or out_dtype=f32 for bf16 and
+    f16) within twice the plain f32 product's own error against a float64
+    product, relative to |x| @ |y|; an output in the operands' type is its
+    f32 sum rounded once to nearest even."""
+    before = mm_mod.launches
+    got = mm_mod.tiled_matmul(x, y)
+    torch.cuda.synchronize()
+    assert mm_mod.launches == before + 1
+    want = ref.tiled_matmul(x, y)
+    assert got.dtype == want.dtype == x.dtype
+    k32 = mm_mod.tiled_matmul(x, y, out_dtype=torch.float32)
+    p32 = ref.tiled_matmul(x, y, out_dtype=torch.float32)
+    x64, y64 = x.double(), y.double()
+    exact = x64 @ y64
+    scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
+    err_k = float(((k32.double() - exact).abs() / scale).max())
+    err_p = float(((p32.double() - exact).abs() / scale).max())
+    assert err_k <= 2.0 * err_p + 1e-12, (err_k, err_p)
+    assert torch.equal(got, k32.to(x.dtype))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("m,k,n", [(33, 129, 65), (100, 70, 50), (4, 1, 7),
@@ -251,27 +343,17 @@ def test_matmul_kernel_matches_plain_on_card(card, rng, dtype, m, k, n):
         y = _t(rng.normal(size=(k, n)).astype(np.float32)).to(
             getattr(torch, dtype))
     x, y = x.to(card), y.to(card)
+    if dtype != "int8":
+        _float_contract(x, y)
+        return
     before = mm_mod.launches
     got = mm_mod.tiled_matmul(x, y)
     torch.cuda.synchronize()
     assert mm_mod.launches == before + 1
     want = ref.tiled_matmul(x, y)
-    assert got.dtype == want.dtype == (torch.int32 if dtype == "int8"
-                                       else x.dtype)
-    if dtype == "int8":
-        assert torch.equal(got, want)
-        assert torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(), y.cpu()))
-        return
-    f32 = torch.float32
-    k32 = mm_mod.tiled_matmul(x, y, out_dtype=f32)
-    p32 = ref.tiled_matmul(x, y, out_dtype=f32)
-    x64, y64 = x.double(), y.double()
-    exact = x64 @ y64
-    scale = (x64.abs() @ y64.abs()).clamp_min(1e-300)
-    err_k = float(((k32.double() - exact).abs() / scale).max())
-    err_p = float(((p32.double() - exact).abs() / scale).max())
-    assert err_k <= 2.0 * err_p + 1e-12, (err_k, err_p)
-    assert torch.equal(got, k32.to(x.dtype))
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ref.tiled_matmul(x.cpu(), y.cpu()))
 
 
 @pytest.mark.cuda
@@ -338,6 +420,59 @@ def test_matmul_int8_attributes_follow_plan(card):
             p = mm_mod.plan(m, n, k)
             assert (a["form"], a["k_slice"], a["slices"]) == tuple(p)
             assert a["registers_per_thread"] > 0 and a["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [130, 272])
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 33, 129, 2048, 8192])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 128, 129])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_matmul_f16_sweep_meets_the_float_contract_on_card(card, rng, dtype,
+                                                           m, k, n):
+    """The bf16 / f16 tensor-core kernel over the int8 sweep's shapes (K
+    and N on and off the 16-byte load path, K = 0, a ragged last column
+    tile, M across one and two warpgroups and two row tiles, K up to
+    8192): the float contract at each."""
+    dt = getattr(torch, dtype)
+    x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(card, dt)
+    y = _t(rng.normal(size=(k, n)).astype(np.float32)).to(card, dt)
+    _float_contract(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [999, 4])
+@pytest.mark.parametrize("k,n", [(2048, 8384), (4096, 2048), (8192, 2048),
+                                 (2048, 32000)],
+                         ids=["in_proj", "out_proj", "wo", "head"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_matmul_f16_serving_gemms_meet_the_float_contract_on_card(
+        card, rng, dtype, k, n, m):
+    """zamba2-1.2b's full-width GEMMs at a 999-token prefill and a 4-slot
+    decode step, activations and weights seeded normals (the weights
+    scaled by 0.02): the float contract."""
+    dt = getattr(torch, dtype)
+    x = _t(rng.normal(size=(m, k)).astype(np.float32)).to(card, dt)
+    y = _t((rng.normal(size=(k, n)) * 0.02).astype(np.float32)).to(card, dt)
+    _float_contract(x, y)
+
+
+@pytest.mark.cuda
+def test_matmul_f16_attributes_follow_the_launch(card):
+    """The bf16 / f16 attribute query reports the launch's own tile, chain,
+    grid and resources: ``F16_TILE`` tiles of 256 threads, chains of
+    ``F16_CHAIN_K`` k at every K, one block of ceil(M / 128) x ceil(N /
+    128) a tile, at zamba2's in_proj 8 x 66 = 528 blocks, and at least one
+    block an SM."""
+    for m, n, k in ((999, 8384, 2048), (4, 8384, 2048), (4, 130, 1),
+                    (129, 272, 8192), (999, 32000, 2048), (1, 1, 0)):
+        a = mm_mod.f16_kernel_attributes(m, n, k)
+        assert a["tile"] == list(mm_mod.F16_TILE)
+        assert a["chain_k"] == mm_mod.F16_CHAIN_K
+        assert a["grid_blocks"] == -(-m // 128) * -(-n // 128)
+        assert a["threads_per_block"] == 256
+        assert a["registers_per_thread"] > 0 and a["blocks_per_sm"] >= 1
+        assert a["smem_bytes_per_block"] <= 232448
+    assert mm_mod.f16_kernel_attributes(999, 8384, 2048)["grid_blocks"] == 528
 
 
 @pytest.mark.cuda
