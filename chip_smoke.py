@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the hand CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 the git-ignored ``build/``), holds each kernel against its plain PyTorch
@@ -33,7 +33,9 @@ and the tracking loop.
 
 Then the LM slice on zamba2-1.2b at full width (``lm_phases``): the
 attention and SSD kernels against their plain versions (bf16 attention
-on the tensor cores, p split into two bf16 halves), a full-width f32
+on the tensor cores, p split into two bf16 halves; the SSD scan in three
+passes, its products as 3xTF32 on the tensor cores, each pass's kernel
+counted in a traced prefill), a full-width f32
 cut against the CPU, the full model serving 8 requests through ``Engine``
 in bf16 (and f32), the same traffic on ``quantize_weights_int8`` weights
 dequantized to bf16, and the float -> int rewrite's GEMM
@@ -43,7 +45,9 @@ version and ``quantized_matmul`` at the model's full-width GEMMs, with
 device times beside ``torch._int_mm``'s and ``torch.mm``'s and profiler
 traces of each; the LM kernels'
 times beside SDPA and their bounds, and one attention launch profiled
-(device time, TFLOP/s, registers, blocks an SM).
+(device time, TFLOP/s, registers, blocks an SM).  ``--parent DIR`` (an
+unpacked ``git archive`` of the parent commit) builds that tree's SSD
+kernel and times it beside this one on the same inputs.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -53,8 +57,11 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -125,28 +132,87 @@ def device_ms(run, n: int = 10) -> float:
     return min(one_launch_ms(run) for _ in range(n))
 
 
+PRIMER_SPINS = 64
+# host calls that put work on the device: each has one device record
+LAUNCH_CALL = re.compile(r"cu(da)?(LaunchKernel|LaunchCooperativeKernel"
+                         r"|Memset|Memcpy)")
+# every gpu_trace of the run: its name, the process's age, each try's losses
+TRACES: list[dict] = []
+STARTED = time.perf_counter()
+
+
+def fence_trace(n: int) -> None:
+    """``n`` empty spin kernels, then a synchronize: the fences around the
+    work of a profiler trace."""
+    import torch
+
+    for _ in range(n):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def gpu_trace(run, name: str, n_runs: int, focus=()):
     """Profile ``run`` called ``n_runs`` times (torch.profiler, CPU and
     CUDA activities); every GPU activity of the trace summed by name, the
     busy time and the span from the first activity to the last, and for
     each substring of ``focus`` the calls and ms of the activities whose
-    name holds it."""
+    name holds it.
+
+    On H100 runs the profiler dropped device records of a trace while it
+    kept the host's launch records: the first records, more of them the
+    longer the process had run, now and then many more, the last record,
+    or a run of records in the middle.  So ``PRIMER_SPINS`` spin kernels
+    open the trace, where the first losses fall, and one closes it, each
+    burst synchronized; a trace is whole when every launch of the work
+    between them that the host recorded (a kernel launch, a memset or a
+    copy) has its device record, matched by correlation id.  A trace that
+    is not whole is taken again, up to four times, with four times the
+    primer each time.  The spins are left out of every count;
+    ``losses`` records each try's primer, the spins of it lost, whether the
+    closing spin was lost, and the launches without a device record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_runs):
-            run()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
     trace_path = ROOT / "build" / f"trace_{name}.json"
     trace_path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace_path))
-    gpu = [e for e in json.loads(trace_path.read_text())["traceEvents"]
-           if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    losses = []
+    for tries in range(1, 5):
+        primer = PRIMER_SPINS * 4 ** (tries - 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fence_trace(primer)
+            t0 = time.perf_counter()
+            for _ in range(n_runs):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            fence_trace(1)
+        prof.export_chrome_trace(str(trace_path))
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        acts = sorted((e for e in events if e.get("cat") in (
+            "kernel", "gpu_memset", "gpu_memcpy")), key=lambda e: e["ts"])
+        spin = ["spin_kernel" in e["name"] for e in acts]
+        gpu = [e for e, s in zip(acts, spin) if not s]
+        lead = spin.index(False) if gpu else len(spin)
+        recorded = {e.get("args", {}).get("correlation") for e in acts}
+        # the host's launches in order, the fences' left out
+        launches = sorted((e for e in events
+                           if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                           and LAUNCH_CALL.match(e["name"])),
+                          key=lambda e: e["ts"])[primer:-1]
+        unmatched = sum(e.get("args", {}).get("correlation") not in recorded
+                        for e in launches)
+        losses.append({"primer": primer,
+                       "primer_spins_lost": primer - min(lead, primer),
+                       "closing_spin_lost": not acts or not spin[-1],
+                       "launches": len(launches),
+                       "launches_without_device_record": unmatched})
+        whole = unmatched == 0 and (bool(launches) or not gpu)
+        if whole:
+            break
+    TRACES.append({"name": name, "age_s": time.perf_counter() - STARTED,
+                   "whole": whole, "losses": losses})
     by_name: dict[str, list[float]] = {}
     for e in gpu:
         by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
@@ -164,18 +230,56 @@ def gpu_trace(run, name: str, n_runs: int, focus=()):
             "traced_wall_ms": wall_ms,
             "top": [{"name": k[:90], "calls": len(v), "ms": sum(v)}
                     for k, v in top],
-            "trace": str(trace_path.relative_to(ROOT)), "runs": n_runs}
+            "trace": str(trace_path.relative_to(ROOT)), "runs": n_runs,
+            "tries": tries, "whole": whole, "losses": losses}
 
 
 def traced(run, name: str) -> dict:
     """Ten calls of ``run`` under the profiler: each device kernel by name
-    with its mean time over the activities recorded (the profiler may
-    record fewer activities than calls)."""
+    with its mean time over the activities recorded, and whether the trace
+    held both its fences (``gpu_trace``)."""
     t = gpu_trace(run, name, 10)
-    return {"calls": t["runs"],
+    return {"calls": t["runs"], "whole": t["whole"], "tries": t["tries"],
             "kernels": [{"name": e["name"], "activities": e["calls"],
                          "ms_an_activity": e["ms"] / e["calls"]}
                         for e in t["top"]]}
+
+
+def parent_ssd_kernel(tree: Path):
+    """The parent commit's SSD kernel, built from ``tree`` (an unpacked
+    ``git archive`` of that commit) with this tree's nvcc flags, as
+    ``run(x, dt, A, B, C) -> (y, state)`` through its own C entry (one
+    block per (batch, head), chunk 128)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    src = Path(tree) / "src" / "repro_torch" / "kernels" / "csrc" / "ssd_scan.cu"
+    out = ROOT / "build" / "parent_kernels" / "libssd_scan_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    lib.ssd_scan_f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                 + [ctypes.c_void_p])
+    lib.ssd_scan_f32.restype = ctypes.c_int
+
+    def run(x, dt, A, B, C):
+        b, L, H, P = x.shape
+        G, N = B.shape[2], B.shape[3]
+        y = torch.empty_like(x)
+        state = torch.empty((b, H, N, P), dtype=x.dtype, device=x.device)
+        xdt = (x * dt[..., None]).contiguous()
+        ldec = (dt * A[None, None, :]).contiguous()
+        rc = lib.ssd_scan_f32(xdt.data_ptr(), ldec.data_ptr(), B.data_ptr(),
+                              C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                              b, L, H, G, N, P, min(128, L),
+                              torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's SSD kernel: CUDA error {rc}")
+        return y, state
+
+    return run
 
 
 # The slice's serving traffic: 8 greedy requests of these prompt lengths,
@@ -184,13 +288,14 @@ SERVE_PROMPTS = (97, 128, 200, 255, 384, 513, 777, 1000)
 SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 4, 1152
 
 
-def lm_phases(cuda_ms) -> list:
+def lm_phases(cuda_ms, parent=None) -> list:
     """The LM serving slice: zamba2-1.2b through the continuous-batching
     Engine, both LM kernels against their plain versions on the card, a
     full-width f32 run held against the port's CPU run, the full model in
     bf16 with its launches read per prefill and per decode step, and the
-    kernels' times beside their bounds.  Returns the two kernels' entries
-    of the ``kernels`` line."""
+    kernels' times beside their bounds (the SSD kernel's beside the
+    parent's, built from the tree ``parent``, where one is given).
+    Returns the two kernels' entries of the ``kernels`` line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -264,7 +369,7 @@ def lm_phases(cuda_ms) -> list:
                        "form": attn_mod.FORM[dt],
                        "max_abs_err": err, "elements_beyond_1_ulp": beyond_ulp,
                        "tol": rule, "ok": ok})
-    ssd_cases = [(1, L, 64, 64, 64, 1) for L in (97, 128, 1000)]
+    ssd_cases = [(1, L, 64, 64, 64, 1) for L in (97, 128, 999, 1000)]
     ssd_cases += [(2, 1, 4, 16, 8, 2), (2, 80, 4, 16, 8, 2)]
     ssd_err = 0.0
     for b, L, H, P, N, G in ssd_cases:
@@ -285,7 +390,8 @@ def lm_phases(cuda_ms) -> list:
               and torch.allclose(h, hs, rtol=2e-3, atol=2e-3))
         ssd_err = max(ssd_err, err)
         checks.append({"kernel": "ssd_scan", "shape": [b, L, H, P, N, G],
-                       "chunk": min(128, L), "max_abs_err": err,
+                       "chunk": min(128, L), "form": ssd_mod.FORM,
+                       "max_abs_err": err,
                        "max_rel_err_vs_chunked_plain": rel_c,
                        "max_abs_err_vs_sequential": max(
                            float((y - ys).abs().max()),
@@ -581,9 +687,11 @@ def lm_phases(cuda_ms) -> list:
     bad_p32, bad_d32 = launch_faults(probe32, per_prefill)
     tf_f32, scale_f32 = teacher_forced(model32, params32, probe32, reqs32)
     del params32
+    ssd_traced = runs["prefill_999"]["focus"]["ssd_scan"]["calls"]
     serve_ok = (done and finite and not bad_prefill and not bad_decode
                 and done32 and not bad_p32 and not bad_d32
-                and tf_f32 <= 5e-2)
+                and tf_f32 <= 5e-2
+                and ssd_traced == n_mamba * ssd_mod.PASSES)
     emit({"phase": "serve", "model": "zamba2-1.2b",
           "configured_layers": cfg.n_layers, "mamba2_layers_run": n_mamba,
           "shared_block_applications": n_super, "d_model": cfg.d_model,
@@ -601,6 +709,8 @@ def lm_phases(cuda_ms) -> list:
           "decode_steps": len(probe.decodes),
           "decode_steps_launching_a_kernel": len(bad_decode),
           "launches_in_run": launches,
+          "ssd_kernels_in_traced_prefill_999": ssd_traced,
+          "ssd_kernels_expected": n_mamba * ssd_mod.PASSES,
           "decode_step_ms_4_slots_median": (float(np.median(full))
                                             if full else None),
           "decode_step_ms_4_slots_min": min(full) if full else None,
@@ -622,7 +732,8 @@ def lm_phases(cuda_ms) -> list:
             f"serving slice failed: done={done}/{done32} finite={finite} "
             f"prefill launches {bad_prefill[:2]} {bad_p32[:2]} decode "
             f"launches {bad_decode[:2]} {bad_d32[:2]} f32 teacher-forced "
-            f"err {tf_f32}")
+            f"err {tf_f32}, {ssd_traced} SSD kernels traced in a prefill "
+            f"(want {n_mamba * ssd_mod.PASSES})")
 
     # --- lm_times: each kernel per launch at the serving shapes ----------
     # Every time here (kernel, plain version, library call) is the device
@@ -635,11 +746,17 @@ def lm_phases(cuda_ms) -> list:
     # FLOP a pair (the split PV's second product), and at L = 999 the f32
     # FMA kernel (f32 operands) against its bound at the f32 rate, and ten
     # traced calls of the kernel and of SDPA (their device kernels by name,
-    # from the profiler).  SSD: a Mamba-2 prefill, H = P = N = 64, G = 1, f32 (the
-    # reference casts its inputs so); bound: x, dt, A, B, C read and y and
-    # the state written once, against the chunks' products (lower
-    # triangles only, each chunk's real rows) at the f32 rate, with the
-    # TF32 rate beside it.
+    # from the profiler).  SSD: a Mamba-2 prefill, H = P = N = 64, G = 1,
+    # f32 (the reference casts its inputs so), every pass of a call in its
+    # one-launch time; bound: x, dt, A, B, C read and y and the state
+    # written once, against the chunks' products at the f32 rate, C B^T
+    # counted once per group (G r(r+1) N + H r(r+1) P + 4 H r N P a chunk of
+    # r real rows: lower triangles only); beside it the count that charged
+    # C B^T to every head, the same operations at the TF32 rate, and the
+    # kernel's own form's bound (3 products at the TF32 rate); the blocks of
+    # each pass; at L = 999 ten calls traced (each pass's kernel by name);
+    # and the parent's kernel on the same inputs where a tree is given.
+    parent_run = parent_ssd_kernel(parent) if parent else None
     attn_rows, ssd_rows = [], []
     for n in SERVE_PROMPTS:
         L = n - 1
@@ -688,24 +805,59 @@ def lm_phases(cuda_ms) -> list:
                 "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                     q32, k32, v32, is_causal=True))}
         H = P = N = 64
+        G = 1
         x = randn(1, L, H, P, scale=0.1)
         dt_ = torch.full((1, L, H), 0.05, device=dev)
         A = -torch.ones(H, device=dev)
-        Bm, C = randn(1, L, 1, N), randn(1, L, 1, N)
-        flops = 0.0
+        Bm, C = randn(1, L, G, N), randn(1, L, G, N)
+        flops = flops_per_head = 0.0
         for c0 in range(0, L, 128):
             r = min(128, L - c0)
-            flops += H * (r * (r + 1) * (N + P) + 4.0 * r * N * P)
+            flops += (G * r * (r + 1) * N + H * r * (r + 1) * P
+                      + 4.0 * H * r * N * P)
+            flops_per_head += H * (r * (r + 1) * (N + P) + 4.0 * r * N * P)
         flops += L * H * P                            # x * dt
-        n_bytes = 4 * (2 * L * H * P + L * H + H + 2 * L * N + H * N * P)
+        flops_per_head += L * H * P
+        n_bytes = 4 * (2 * L * H * P + L * H + H + 2 * L * G * N + H * N * P)
         s_ms, s_by = bound_ms(n_bytes, flops)
-        ssd_rows.append({
-            "L": L, "ms": device_ms(lambda: ssd_mod.ssd_scan(x, dt_, A, Bm, C)),
+        plan = ssd_mod.plan(1, L, H, G, N, P, min(128, L))
+        blocks = {k.removeprefix("blocks_"): v for k, v in plan.items()
+                  if k.startswith("blocks_")}
+
+        def ssd_kernel():
+            return ssd_mod.ssd_scan(x, dt_, A, Bm, C)
+
+        row = {
+            "L": L, "ms": device_ms(ssd_kernel),
             "plain_ms": device_ms(lambda: ref.ssd_scan_chunked(
                 x, dt_, A, Bm, C), n=3),
             "library_ms": None, "bound_ms": s_ms, "bound_by": s_by,
+            "gflop": flops / 1e9,
             "bound_ms_at_tf32_rate": bound_ms(n_bytes, flops,
-                                              TF32_FLOPS_PER_S)[0]})
+                                              TF32_FLOPS_PER_S)[0],
+            "bound_ms_3xtf32_form": bound_ms(n_bytes, 3 * flops,
+                                             TF32_FLOPS_PER_S)[0],
+            "gflop_cb_per_head": flops_per_head / 1e9,
+            "bound_ms_cb_per_head": bound_ms(n_bytes, flops_per_head)[0],
+            "blocks": blocks, "widest_pass_blocks": max(blocks.values())}
+        if parent_run is not None:
+            row["parent_ms"] = device_ms(lambda: parent_run(x, dt_, A, Bm, C))
+        if L == 999:
+            yk, hk = ssd_kernel()
+            ssd_profile = {"L": L, "form": ssd_mod.FORM,
+                           "passes": ssd_mod.PASSES, "blocks": blocks,
+                           "smem_bytes": {k: plan[k] for k in (
+                               "smem_chunk", "smem_output")},
+                           "kernel_traced": traced(ssd_kernel,
+                                                   "ssd_kernel_999")}
+            if parent_run is not None:
+                yp, hp = parent_run(x, dt_, A, Bm, C)
+                ssd_profile["parent_tree"] = str(parent)
+                ssd_profile["parent_max_abs_diff"] = max(
+                    float((yk - yp).abs().max()), float((hk - hp).abs().max()))
+                ssd_profile["parent_traced"] = traced(
+                    lambda: parent_run(x, dt_, A, Bm, C), "ssd_parent_999")
+        ssd_rows.append(row)
 
     def mean_row(rows):
         out = {k: sum(r[k] for r in rows) / len(rows)
@@ -717,6 +869,9 @@ def lm_phases(cuda_ms) -> list:
         return out
 
     attn_mean, ssd_mean = mean_row(attn_rows), mean_row(ssd_rows)
+    if parent_run is not None:
+        ssd_mean["parent_ms"] = (sum(r["parent_ms"] for r in ssd_rows)
+                                 / len(ssd_rows))
     emit({"phase": "lm_times", "note": "device ms of one launch, the least "
           "of 10; the means are over the 8 serving prefill lengths, each "
           "launched 6 (attention) or 40 (SSD) times a prefill; no PyTorch "
@@ -725,7 +880,9 @@ def lm_phases(cuda_ms) -> list:
                               "by_length": attn_rows, "mean": attn_mean,
                               "f32_fma_kernel": attn_f32,
                               "profile_one_launch": attn_profile},
-          "ssd_scan": {"by_length": ssd_rows, "mean": ssd_mean}})
+          "ssd_scan": {"form": ssd_mod.FORM, "passes": ssd_mod.PASSES,
+                       "by_length": ssd_rows, "mean": ssd_mean,
+                       "profile_one_launch": ssd_profile}})
     return [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -737,6 +894,7 @@ def lm_phases(cuda_ms) -> list:
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:72",
          "path": "zamba2_serve", "launches": launches["ssd_scan"],
+         "form": ssd_mod.FORM, "passes": ssd_mod.PASSES,
          "max_abs_err": ssd_err, **ssd_mean},
         matmul_entry,
     ]
@@ -1071,7 +1229,13 @@ def matmul_phases(cuda_ms, params) -> dict:
                          for r in times]}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="an unpacked tree of the parent commit (git archive): its SSD "
+             "kernel is built and timed beside this one in lm_times")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1916,7 +2080,35 @@ def main() -> int:
                 **{k: tier_times[g][k] for k in keys}}
                for g in ("f16", "int8")},
         }})
-    kernels += lm_phases(cuda_ms)
+    kernels += lm_phases(cuda_ms, args.parent)
+    emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "
+          "taken, whole, taken again; tries that lost primer spins, the "
+          "closing spin, or a launch's device record; launches in the "
+          "traces kept; by the process's age, the first try's primer "
+          "spins lost, closing spin lost, launches unrecorded",
+          "traces": len(TRACES),
+          "whole": sum(t["whole"] for t in TRACES),
+          "taken_again": sum(len(t["losses"]) > 1 for t in TRACES),
+          "tries": sum(len(t["losses"]) for t in TRACES),
+          "tries_losing_primer_spins": sum(
+              f["primer_spins_lost"] > 0 for t in TRACES
+              for f in t["losses"]),
+          "most_primer_spins_lost": max(
+              (f["primer_spins_lost"] for t in TRACES for f in t["losses"]),
+              default=0),
+          "tries_losing_closing_spin": sum(
+              f["closing_spin_lost"] for t in TRACES for f in t["losses"]),
+          "tries_with_launches_unrecorded": sum(
+              f["launches_without_device_record"] > 0 for t in TRACES
+              for f in t["losses"]),
+          "launches_traced": sum(t["losses"][-1]["launches"]
+                                 for t in TRACES),
+          "first_try_by_age": [
+              [round(t["age_s"], 1), t["losses"][0]["primer_spins_lost"],
+               t["losses"][0]["closing_spin_lost"],
+               t["losses"][0]["launches_without_device_record"]]
+              for t in TRACES],
+          "not_whole": [t["name"] for t in TRACES if not t["whole"]]})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

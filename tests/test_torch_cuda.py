@@ -8,6 +8,7 @@ installed.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -605,8 +606,10 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,L,H,P,N,G,chunk", [
+    (1, 96, 64, 64, 64, 1, 128),     # zamba2's widths, the shortest prefill
     (1, 97, 64, 64, 64, 1, 128),     # zamba2's heads, one ragged chunk
     (1, 300, 64, 64, 64, 1, 128),    # three chunks, ragged tail
+    (1, 999, 64, 64, 64, 1, 128),    # the longest prefill: 8 chunks
     (2, 80, 4, 16, 8, 2, 16),        # the reference's sweep, G = 2
     (2, 80, 4, 16, 8, 1, 32),
     (1, 1, 4, 16, 8, 2, 128),        # L = 1
@@ -636,12 +639,70 @@ def test_ssd_kernel_matches_plain_on_card(card, rng, b, L, H, P, N, G, chunk):
 
 @pytest.mark.cuda
 def test_ssd_kernel_smem_formula_matches_the_source(card):
+    """The wrapper's plan (shared memory of passes (a) and (c), blocks of
+    each pass, scratch floats) equals the C entry's, at the serving shapes
+    and the odd ones; a non-f32 input is refused before any launch."""
     lib = ssd_mod._lib()
-    for Q, N, P in ((128, 64, 64), (97, 64, 64), (16, 16, 32), (13, 20, 12)):
-        assert lib.ssd_scan_smem_bytes(Q, N, P) == ssd_mod.smem_bytes(Q, N, P)
+    for b, L, H, G, N, P, Q in ((1, 999, 64, 1, 64, 64, 128),
+                                (1, 96, 64, 1, 64, 64, 96),
+                                (2, 80, 4, 2, 16, 32, 16),
+                                (1, 45, 6, 3, 20, 12, 13),
+                                (1, 1, 4, 2, 8, 16, 1)):
+        want = ssd_mod.plan(b, L, H, G, N, P, Q)
+        got = {k: lib.ssd_scan_plan(i, b, L, H, G, N, P, Q)
+               for i, k in enumerate(ssd_mod._PLAN_KEYS)}
+        assert got == want
     with pytest.raises(TypeError, match="f32"):
         z = torch.zeros((1, 4, 2, 8), device=card)
         ssd_mod.ssd_scan(z.half(), z[..., 0], z[0, 0, :, 0], z, z)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_one_call_is_one_launch_of_its_passes(card, rng,
+                                                        tmp_path):
+    """One call counts one launch, and the profiler sees ``PASSES`` device
+    kernels named ``ssd_scan_*``, one of each pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, L, H, P, N, G = 1, 300, 8, 16, 16, 1
+    x = _t((rng.normal(size=(b, L, H, P)) * 0.1).astype(np.float32)).to(card)
+    dt = _t(rng.uniform(0.01, 0.1, (b, L, H)).astype(np.float32)).to(card)
+    A = _t(-rng.uniform(0.5, 1.5, (H,)).astype(np.float32)).to(card)
+    Bm = _t(rng.normal(size=(b, L, G, N)).astype(np.float32)).to(card)
+    ssd_mod.ssd_scan(x, dt, A, Bm, Bm)            # build and warm up
+    torch.cuda.synchronize()
+    # The profiler can drop device records (a trace's first ones, more the
+    # longer the process has run; now and then others) while it keeps the
+    # host's launch records.  Spin kernels open and close the call, and a
+    # trace in which a launch of the call has no device record is taken
+    # again.
+    for primer in (64, 256, 1024, 4096):
+        before = ssd_mod.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            ssd_mod.ssd_scan(x, dt, A, Bm, Bm)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        assert ssd_mod.launches == before + 1
+        trace = tmp_path / "ssd.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+        acts = [e for e in events if e.get("cat") == "kernel"]
+        recorded = {e["args"].get("correlation") for e in acts}
+        calls = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                        and e["name"].startswith("cudaLaunchKernel")),
+                       key=lambda e: e["ts"])[primer:-1]
+        if calls and all(e["args"].get("correlation") in recorded
+                         for e in calls):
+            break
+    names = [e["name"] for e in acts if "ssd_scan" in e["name"]]
+    assert len(names) == ssd_mod.PASSES
+    for part in ("chunk", "carry", "output"):
+        assert sum(f"ssd_scan_{part}_kernel" in n for n in names) == 1
 
 
 @pytest.mark.cuda

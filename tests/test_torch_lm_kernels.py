@@ -366,8 +366,177 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
 
 
 def test_ssd_smem_formula_fits_the_serving_shapes():
-    """zamba2's chunk of 128 at N = P = 64 needs ~184 KB, inside the
-    card's 227 KB; a chunk of 128 at N = P = 128 does not fit."""
+    """zamba2's chunk of 128 at N = P = 64: the output pass (c) takes 80 KB
+    of shared memory, two blocks an SM, and the chunk pass (a) 73.5 KB,
+    three; both inside the card's 227 KB.  N = P = 256 does not fit."""
+    p = ssd_mod.plan(1, 999, 64, 1, 64, 64, 128)
+    assert ssd_mod.smem_bytes(128, 64, 64) == p["smem_output"] == 81920
+    assert p["smem_chunk"] == 75264 and 3 * p["smem_chunk"] <= 228 * 1024
     assert ssd_mod.smem_bytes(128, 64, 64) <= ssd_mod.MAX_SMEM_BYTES
-    assert ssd_mod.smem_bytes(128, 64, 64) > 160_000
-    assert ssd_mod.smem_bytes(128, 128, 128) > ssd_mod.MAX_SMEM_BYTES
+    assert ssd_mod.smem_bytes(128, 256, 256) > ssd_mod.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("L", [96, 127, 199, 254, 383, 512, 776, 999])
+def test_ssd_plan_fills_the_card_and_shares_cb_per_group(L):
+    """At every serving prefill length, batch 1, zamba2's widths: the
+    output pass alone has at least the H100's 132 SMs' worth of blocks,
+    and C B^T takes one block and one Q x Q scratch per (batch, group,
+    chunk), not per head."""
+    Q = min(128, L)
+    nc, QP = -(-L // Q), -(-Q // 32) * 32
+    p = ssd_mod.plan(1, L, 64, 1, 64, 64, Q)
+    assert p["blocks_output"] >= 132
+    assert p["blocks_chunk"] == (1 + 64) * nc           # G + H blocks a chunk
+    assert p["cb_floats"] == 1 * nc * QP * QP           # G = 1, not H = 64
+    assert ssd_mod.PASSES == 3
+
+
+# --- the SSD kernel's passes and its 3xTF32 products, on the CPU ----------------
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the bits: the f32 magnitude rounded to 10
+    mantissa bits, to nearest with ties away from zero (half of the 13
+    dropped bits' unit added to the magnitude, then those bits cleared)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's product: each operand split as hi = tf32(a), lo =
+    tf32(a - hi), and lo.hi' + hi.lo' + hi.hi' summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """One TF32 product: the rounding 3xTF32 exists to avoid."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_passes(x, dt, A, B, C, *, chunk, mm=torch.matmul):
+    """The SSD kernel's decomposition (csrc/ssd_scan.cu), in torch, with
+    its products through ``mm``: (a) each chunk's cum = cumsum(dt * A),
+    S_c = (B o exp(cum_last - cum) dt)^T . x, and C B^T once per group;
+    (b) the carry h_c = exp(cum_last[c-1]) h_{c-1} + S_{c-1}; (c) y = ((C
+    B^T) o tril(exp(cum_i - cum_j)) o dt_j) . x + (C o exp(cum)) . h_c.
+    The ragged tail is padded with zero steps.  Returns (y, state, C B^T of
+    shape (b, n_chunks, G, Q, Q))."""
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2)
+                                    + (0, nc * Q - L))
+        return t.reshape(b, nc, Q, *t.shape[2:])
+
+    xc, dtc, Bc, Cc = chunks(x), chunks(dt), chunks(B), chunks(C)
+    xq = xc.permute(0, 1, 3, 2, 4)                         # (b, nc, H, Q, P)
+    cum = torch.cumsum(dtc * A, dim=2).permute(0, 1, 3, 2)  # (b, nc, H, Q)
+    last = cum[..., -1:]
+    w = torch.exp(last - cum) * dtc.permute(0, 1, 3, 2)
+    Bh = Bc.repeat_interleave(rep, dim=3).permute(0, 1, 3, 4, 2)
+    S = mm(Bh * w[:, :, :, None, :], xq)                   # (b, nc, H, N, P)
+    cb = mm(Cc.permute(0, 1, 3, 2, 4), Bc.permute(0, 1, 3, 4, 2))
+    h = torch.zeros((b, H, N, P))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None] * h + S[:, c]
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    decay = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        0.0)
+    M = (cb.repeat_interleave(rep, dim=2) * decay
+         * dtc.permute(0, 1, 3, 2)[..., None, :])
+    Ce = (Cc.repeat_interleave(rep, dim=3).permute(0, 1, 3, 2, 4)
+          * torch.exp(cum)[..., None])
+    y = mm(M, xq) + mm(Ce, torch.stack(h_in, dim=1))       # (b, nc, H, Q, P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc * Q, H, P)[:, :L]
+    return y, h, cb
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("chunk", [13, 16, 32, 128])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("L", [1, 80, 100, 300])
+def test_ssd_pass_model_matches_chunked_and_pallas(rng, L, G, chunk):
+    """The kernel's decomposition, with f32 products, against the port's
+    chunked form and the Pallas body (interpret mode) at the same chunk:
+    1e-5 (the same products, grouped and summed in another order), C B^T
+    of one shape per group."""
+    x, dt, A, Bm, C = _ssd_inputs(rng, 2, L, 4, 16, 8, G)
+    y, h, cb = _ssd_passes(_t(x), _t(dt), _t(A), _t(Bm), _t(C), chunk=chunk)
+    Q = min(chunk, L)
+    assert cb.shape == (2, -(-L // Q), G, Q, Q)
+    yc, hc = ref.ssd_scan_chunked(_t(x), _t(dt), _t(A), _t(Bm), _t(C),
+                                  chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), yc.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), hc.numpy(), rtol=1e-5, atol=1e-5)
+    ya, sa = jssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(A),
+                  jnp.asarray(Bm), jnp.asarray(C), chunk=chunk,
+                  interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ya), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(sa), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_tf32_emulation_rounds_as_cvt_rna(rng):
+    """Round to nearest on the 10-bit mantissa, ties away from zero, the
+    carry into the exponent kept; hi + lo is x to 2^-21 |x| (the rest is
+    lo's own rounding), lo at most 2^-11 |x|."""
+    e = 2.0 ** -11
+    f = torch.tensor([1 + e, -(1 + e), 1 + e - 2 ** -23, 1 + e + 2 ** -23,
+                      2 - 2 ** -23, 1.5, 0.0, -3 * 2 ** -100],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2 * e, -(1 + 2 * e), 1.0, 1 + 2 * e, 2.0, 1.5,
+                         0.0, -3 * 2 ** -100], dtype=torch.float32)
+    assert torch.equal(_tf32(f), want)
+    x = torch.from_numpy((rng.normal(size=100_000)
+                          * np.exp2(rng.integers(-40, 40, 100_000)))
+                         .astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((x - hi).abs() <= e * x.abs()).all())
+    rest = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((rest <= 2.0 ** -21 * x.double().abs()).all())
+
+
+def test_3xtf32_products_meet_the_contract_with_margin(rng):
+    """zamba2's N = P = 64 with 4 heads, L = 300 (three chunks of 128, a
+    ragged tail): the 3xTF32 products stay within 1e-5 relative of the
+    chunked plain version, a tenth of the card's 1e-4 check."""
+    x, dt, A, Bm, C = (_t(a) for a in _ssd_inputs(rng, 1, 300, 4, 64, 64, 1))
+    y, h, _ = _ssd_passes(x, dt, A, Bm, C, chunk=128, mm=_mm_3xtf32)
+    yc, hc = ref.ssd_scan_chunked(x, dt, A, Bm, C, chunk=128)
+    assert max(_rel(y, yc), _rel(h, hc)) <= 1e-5
+
+
+def test_single_tf32_breaks_the_contract_on_one_dominant_term():
+    """Why three products: with one term in every output, built from
+    values just under a TF32 rounding tie (1 + 2^-11 - 2^-23 rounds to 1,
+    an error of 4.9e-4), single TF32 products miss the 1e-4 relative check
+    by more than ten times; 3xTF32 meets it with margin."""
+    v = 1 + 2.0 ** -11 - 2.0 ** -23
+    b, L, H, P, N = 1, 6, 1, 8, 8
+    x = torch.zeros((b, L, H, P))
+    x[0, 0, 0] = v
+    dt = torch.ones((b, L, H))
+    A = torch.full((H,), -0.5)
+    Bm = torch.zeros((b, L, 1, N))
+    Bm[0, 0, 0, 0] = v
+    C = torch.zeros((b, L, 1, N))
+    C[0, :, 0, 0] = v
+    yc, hc = ref.ssd_scan_chunked(x, dt, A, Bm, C, chunk=128)
+    y1, h1, _ = _ssd_passes(x, dt, A, Bm, C, chunk=128, mm=_mm_tf32)
+    assert max(_rel(y1, yc), _rel(h1, hc)) > 1e-3
+    y3, h3, _ = _ssd_passes(x, dt, A, Bm, C, chunk=128, mm=_mm_3xtf32)
+    assert max(_rel(y3, yc), _rel(h3, hc)) <= 1e-5
