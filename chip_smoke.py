@@ -20,9 +20,10 @@ zeroed just before it and read just after:
 
 It also holds the fused kernel's f16 and int8 gradient tiers to the
 card's staged path bit for bit (int8 to the CPU too), and a hysteresis
-of 45, 60 and 100 passes in every tier (past the tile's shared memory,
-through device memory) to the plain version with its launch schedule
-traced (``fused_long_hysteresis``), gates per-family F1
+past the tile's shared memory (the fewest passes
+``fused_detect.hysteresis_schedule`` sends through device memory, 60 and
+100) in every tier to the plain version with its launch schedule traced
+(``fused_long_hysteresis``), gates per-family F1
 at 240x320 against ``benchmarks/baselines/f1_baseline.json`` (the f32
 detector, and the f16 / int8 tiers staged and fused against its
 "quantized" section), streams under
@@ -46,8 +47,11 @@ device times beside ``torch._int_mm``'s and ``torch.mm``'s and profiler
 traces of each; the LM kernels'
 times beside SDPA and their bounds, and one attention launch profiled
 (device time, TFLOP/s, registers, blocks an SM).  ``--parent DIR`` (an
-unpacked ``git archive`` of the parent commit) builds that tree's SSD
-kernel and times it beside this one on the same inputs.
+unpacked ``git archive`` of the parent commit) builds that tree's SSD and
+``fused_detect`` kernels and times each beside this tree's on the same
+inputs; the fused detector's batch and the tracking loop are timed in
+turns with the parent's fused kernel swapped in (parent, this, this,
+parent, three times), and its profiled window runs once on it.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -58,6 +62,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -248,11 +253,12 @@ def traced(run, name: str) -> dict:
 def parent_ssd_kernel(tree: Path):
     """The parent commit's SSD kernel, built from ``tree`` (an unpacked
     ``git archive`` of that commit) with this tree's nvcc flags, as
-    ``run(x, dt, A, B, C) -> (y, state)`` through its own C entry (one
-    block per (batch, head), chunk 128)."""
-    import torch
-
+    ``run(x, dt, A, B, C) -> (y, state)``: this tree's wrapper launching
+    the parent's library, whose C entry must be this tree's (the
+    three-pass ``ssd_scan_f32`` and its ``ssd_scan_plan``).  The wrapper
+    counts the parent's launches too."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd_mod
 
     src = Path(tree) / "src" / "repro_torch" / "kernels" / "csrc" / "ssd_scan.cu"
     out = ROOT / "build" / "parent_kernels" / "libssd_scan_parent.so"
@@ -260,26 +266,92 @@ def parent_ssd_kernel(tree: Path):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
-    lib.ssd_scan_f32.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    lib.ssd_scan_f32.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                                  + [ctypes.c_void_p])
     lib.ssd_scan_f32.restype = ctypes.c_int
+    lib.ssd_scan_plan.argtypes = [ctypes.c_int] * 8
+    lib.ssd_scan_plan.restype = ctypes.c_longlong
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
 
     def run(x, dt, A, B, C):
-        b, L, H, P = x.shape
-        G, N = B.shape[2], B.shape[3]
-        y = torch.empty_like(x)
-        state = torch.empty((b, H, N, P), dtype=x.dtype, device=x.device)
-        xdt = (x * dt[..., None]).contiguous()
-        ldec = (dt * A[None, None, :]).contiguous()
-        rc = lib.ssd_scan_f32(xdt.data_ptr(), ldec.data_ptr(), B.data_ptr(),
-                              C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                              b, L, H, G, N, P, min(128, L),
-                              torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"the parent's SSD kernel: CUDA error {rc}")
-        return y, state
+        own = ssd_mod._lib
+        ssd_mod._lib = lambda: lib
+        try:
+            return ssd_mod.ssd_scan(x, dt, A, B, C)
+        finally:
+            ssd_mod._lib = own
 
     return run
+
+
+def parent_fused_kernel(tree: Path):
+    """The parent commit's ``fused_detect`` kernel, built from ``tree`` (an
+    unpacked ``git archive`` of that commit) with this tree's nvcc flags,
+    as ``run(x, corridors, cfg, max_edges) -> (cxy, cw, counts)`` through
+    its own C entry: the masks as device tensors, an offsets scratch
+    between its scan and scatter, and the tile path only (no hysteresis
+    planes: every config timed here keeps its 8 passes in the tile)."""
+    import torch
+
+    from repro_torch.core.canny import device_masks
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_detect as fused_mod
+
+    src = (Path(tree) / "src" / "repro_torch" / "kernels" / "csrc"
+           / "fused_detect.cu")
+    out = ROOT / "build" / "parent_kernels" / "libfused_detect_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_detect.argtypes = [P, P, P, I, I, I, P, I, P, P, P, P, P, P, P,
+                                 P, P, I, I, I, I, F, F, F, I, I, P]
+    lib.fused_detect.restype = I
+
+    def run(x, cor, cfg, max_edges, edge_threshold=250.0):
+        N, H, W = x.shape
+        dev = x.device
+        masks = device_masks(cfg, dev)
+        nseg = -(-W // 32)
+        bits = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
+        offsets = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
+        code = fused_mod.tier(cfg)
+        maxima = (torch.empty((2, N), dtype=torch.int32, device=dev)
+                  if cfg.grad_dtype == "int8" else None)
+        cxy = torch.empty((N, max_edges, 3), dtype=torch.float32, device=dev)
+        cw = torch.empty((N, max_edges), dtype=torch.float32, device=dev)
+        counts = torch.empty((N,), dtype=torch.int32, device=dev)
+        rc = lib.fused_detect(
+            x.data_ptr(), masks[0].data_ptr(),
+            None if cfg.fused else masks[1].data_ptr(), code, int(cfg.fused),
+            int(cfg.variant == "paper"),
+            None if cor is None else cor.data_ptr(),
+            0 if cor is None else cor.shape[0], bits.data_ptr(),
+            offsets.data_ptr(),
+            None if maxima is None else maxima[0].data_ptr(),
+            None if maxima is None else maxima[1].data_ptr(), None, None,
+            cxy.data_ptr(), cw.data_ptr(), counts.data_ptr(), N, H, W,
+            max_edges, cfg.low, cfg.high, edge_threshold, cfg.border,
+            cfg.hysteresis_iters, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's fused_detect kernel: CUDA "
+                               f"error {rc}")
+        return cxy, cw, counts
+
+    return run
+
+
+def kernel_phases(trace: dict, runs: int) -> dict:
+    """The device kernels of a ``gpu_trace`` by bare name (template
+    arguments dropped), ms a run."""
+    phases: dict[str, float] = {}
+    for e in trace["top"]:
+        name = (e["name"].replace("(anonymous namespace)::", "")
+                .removeprefix("void ").split("(")[0].split("<")[0])
+        phases[name] = phases.get(name, 0.0) + e["ms"] / runs
+    return phases
 
 
 # The slice's serving traffic: 8 greedy requests of these prompt lengths,
@@ -1234,7 +1306,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--parent", type=Path, default=None,
         help="an unpacked tree of the parent commit (git archive): its SSD "
-             "kernel is built and timed beside this one in lm_times")
+             "and fused_detect kernels are built and timed beside this "
+             "tree's (lm_times; fused_times, fused_tier_times, and the "
+             "fused detector and tracking loop run on the parent's kernel)")
     args = parser.parse_args(argv)
     import torch
 
@@ -1518,32 +1592,40 @@ def main(argv=None) -> int:
     if bad:
         raise SystemExit(f"fused_detect tier checks failed: {bad}")
 
-    # A hysteresis longer than the tile's shared memory holds (above 44
-    # passes, 54 with the fused 7x7 masks) runs through two planes in
-    # device memory: in every tier at 45, 60 and 100 passes on the 8 main
-    # frames, the kernel is one launch, bit-exact with its plain version on
-    # the card; one traced call shows the launch schedule the card ran
-    # (the tile kernel, then fused_mod.hysteresis_schedule's hysteresis
-    # launches, the keep kernel, the scan and the scatter), and the 8-pass
-    # default keeps its single tile kernel.  Times: device ms of one call.
+    # A hysteresis longer than the tile's shared memory holds runs through
+    # two planes in device memory: in every tier, at the fewest passes that
+    # fused_mod.hysteresis_schedule sends there, at 60 and at 100, on the 8
+    # main frames, the kernel is one launch, bit-exact with its plain
+    # version on the card; one traced call shows the launch schedule the
+    # card ran (the tile kernel, then the schedule's hysteresis launches,
+    # the keep kernel, the compaction), and the 8-pass default keeps its
+    # single tile kernel.  Times: device ms of one call.
+    compaction = ("compact_kernel",)
+
     def fused_schedule(lcfg, name):
         t = gpu_trace(lambda: fused_mod.fused_detect(
             frames_dev, cfg=lcfg, edge_threshold=250.0, max_edges=cap),
             name, 1, focus=("canny_tile_kernel", "hysteresis_kernel",
-                            "keep_kernel", "scan_kernel", "scatter_kernel"))
+                            "keep_kernel", *compaction))
         return {k: v["calls"] for k, v in t["focus"].items()}
+
+    def first_planes(**kw):
+        """The fewest passes the tile kernel does not hold."""
+        return next(i for i in range(1, 100) if fused_mod.hysteresis_schedule(
+            CannyConfig(hysteresis_iters=i, **kw)))
 
     long_checks = []
     default_cfg = CannyConfig()
     default_kernels = fused_schedule(default_cfg, "fused_hysteresis_8")
     default_ok = default_kernels == {
         "canny_tile_kernel": 1, "hysteresis_kernel": 0, "keep_kernel": 0,
-        "scan_kernel": 1, "scatter_kernel": 1}
+        **{k: 1 for k in compaction}}
     for tier_name, kw in (("f32", {}), ("integer", {"integer": True}),
                           ("f16", {"grad_dtype": "f16"}),
                           ("int8", {"grad_dtype": "int8"}),
                           ("f32_fused_masks", {"fused": True})):
-        for iters in (45, 60, 100):
+        first = first_planes(**kw)
+        for iters in sorted({first, max(first, 60), 100}):
             lcfg = CannyConfig(hysteresis_iters=iters, **kw)
             schedule = fused_mod.hysteresis_schedule(lcfg)
             before = fused_mod.launches
@@ -1559,7 +1641,7 @@ def main(argv=None) -> int:
             ran = {"canny_tile_kernel": 1,
                    "hysteresis_kernel": len(schedule),
                    "keep_kernel": 1 if schedule else 0,
-                   "scan_kernel": 1, "scatter_kernel": 1}
+                   **{k: 1 for k in compaction}}
             long_checks.append({
                 "kernel": "fused_detect", "tier": tier_name,
                 "hysteresis_iters": iters,
@@ -1570,7 +1652,8 @@ def main(argv=None) -> int:
                 "ms": device_ms(lambda c=lcfg: fused_mod.fused_detect(
                     frames_dev, cfg=c, edge_threshold=250.0,
                     max_edges=cap)),
-                "ok": same and n_launch == 1 and kernels == ran})
+                "ok": same and n_launch == 1 and kernels == ran
+                and bool(schedule)})
     emit({"phase": "fused_long_hysteresis", "hw": [H, W],
           "batch": DEPLOY_BATCH, "note": "device ms of one call, the least "
           "of 10; counts: edges kept a frame",
@@ -1870,7 +1953,53 @@ def main(argv=None) -> int:
     # written once; operations: per pixel the Gauss and Sobel FMAs (2 x 43)
     # and 7 for magnitude and direction, plus 3 per corridor row for each
     # edge pixel (the kernel tests corridors on edges only).  No PyTorch
-    # call computes this function, so no library time.
+    # call computes this function, so no library time.  The kernel's time
+    # is the device time of one call (device_ms); the plain version's, 5
+    # calls back to back (cuda_ms: its host launches outlast device_ms's
+    # sleep).  With --parent, the parent commit's kernel on the same
+    # frames, timed in turns with this one.
+    parent_fused = parent_fused_kernel(args.parent) if args.parent else None
+
+    @contextlib.contextmanager
+    def parent_kernel_swapped():
+        """``fused_mod.fused_detect`` replaced by the parent's kernel (with
+        its wrapper's shape handling), so that a whole detector or tracking
+        loop runs on it; the launch counts do not see it."""
+        def run(image, corridors=None, *, cfg, edge_threshold, max_edges):
+            squeeze = image.ndim == 2
+            img = (image[None] if squeeze else image).to(
+                torch.float32).contiguous()
+            cor = (None if corridors is None
+                   else corridors.to(torch.float32).contiguous())
+            out = parent_fused(img, cor, cfg, max_edges, edge_threshold)
+            return tuple(t[0] for t in out) if squeeze else out
+
+        own = fused_mod.fused_detect
+        fused_mod.fused_detect = run
+        try:
+            yield
+        finally:
+            fused_mod.fused_detect = own
+
+    def fused_vs_parent(run, prun, name):
+        """Device time of one call of ``run`` and its device kernels from a
+        profiled window of three calls; with the parent's kernel ``prun``
+        the same for it, timed in turns (parent, this, this, parent), and
+        whether the two give the same outputs."""
+        row = {"phases_ms_per_launch": kernel_phases(gpu_trace(run, name, 3),
+                                                     3)}
+        if prun is None:
+            row["ms"] = device_ms(run)
+            return row
+        turns = [device_ms(f) for f in (prun, run, run, prun)]
+        row.update(ms=min(turns[1:3]), parent_ms=min(turns[0], turns[3]),
+                   ms_turns=turns[1:3], parent_ms_turns=[turns[0], turns[3]])
+        row["bit_exact_vs_parent"] = all(
+            torch.equal(a, b) for a, b in zip(run(), prun()))
+        row["parent_phases_ms_per_launch"] = kernel_phases(
+            gpu_trace(prun, f"{name}_parent", 3), 3)
+        return row
+
     fused_times = {}
     cor_dev = torch.from_numpy(real_cor).to(dev)
     for name, x, c in (("fused_detector", frames_dev, None),
@@ -1887,9 +2016,13 @@ def main(argv=None) -> int:
         fused_times[name] = {
             "frames": n_img, "corridors": n_cor, "edge_pixels": edge_px,
             "rows_kept": int(cnt.sum()), "max_edges": cap,
-            "ms": cuda_ms(lambda: fused_mod.fused_detect(
-                x, c, cfg=CannyConfig(), edge_threshold=250.0,
-                max_edges=cap)),
+            **fused_vs_parent(
+                lambda: fused_mod.fused_detect(
+                    x, c, cfg=CannyConfig(), edge_threshold=250.0,
+                    max_edges=cap),
+                None if parent_fused is None else
+                (lambda: parent_fused(x, c, CannyConfig(), cap)),
+                f"fused_detect_{name}"),
             # the plain version on the card: torch ops, with the Canny
             # conv stages through the conv kernel
             "plain_ms": cuda_ms(lambda: ref.fused_detect(
@@ -1900,32 +2033,35 @@ def main(argv=None) -> int:
     emit({"phase": "fused_times", "by_shape": fused_times})
 
     # The gradient tiers at the batched detector's shape, beside the f32
-    # tier: ms per launch, and each of the kernel's phases (pre-pass, tile,
-    # scan, scatter) from one profiled window of three launches.  The bound
+    # tier: the device time of one call, and each of the kernel's phases
+    # (int8's pre-pass, the tile, the compaction) from one profiled window
+    # of three calls; the parent's beside them with --parent.  The bound
     # is the f32 tier's: the frames read once and the buffer written once,
     # the operations counted at the f32 rate (the peak table has no f16
     # FMA or int32 rate).
     tier_times = {}
     for grad in ("f32", "f16", "int8"):
         tcfg = CannyConfig(grad_dtype=grad)
-        run = (lambda c=tcfg: fused_mod.fused_detect(
-            frames_dev, cfg=c, edge_threshold=250.0, max_edges=cap))
-        ms = cuda_ms(run)
-        t = gpu_trace(run, f"fused_detect_{grad}", 3)
         tier_times[grad] = {
-            "ms": ms,
+            **fused_vs_parent(
+                lambda c=tcfg: fused_mod.fused_detect(
+                    frames_dev, cfg=c, edge_threshold=250.0, max_edges=cap),
+                None if parent_fused is None else
+                (lambda c=tcfg: parent_fused(frames_dev, None, c, cap)),
+                f"fused_detect_{grad}"),
             "plain_ms": cuda_ms(lambda c=tcfg: ref.fused_detect(
                 frames_dev, cfg=c, edge_threshold=250.0, max_edges=cap),
                 reps=5),
             "library_ms": None,
             "bound_ms": fused_times["fused_detector"]["bound_ms"],
-            "bound_by": fused_times["fused_detector"]["bound_by"],
-            "phases_ms_per_launch": {
-                e["name"].replace("(anonymous namespace)::", "")
-                .removeprefix("void ").split("(")[0]: e["ms"] / 3
-                for e in t["top"]}}
+            "bound_by": fused_times["fused_detector"]["bound_by"]}
     emit({"phase": "fused_tier_times", "hw": [H, W], "batch": DEPLOY_BATCH,
           "by_grad_dtype": tier_times})
+    differ = [k for k, r in [*fused_times.items(), *tier_times.items()]
+              if not r.get("bit_exact_vs_parent", True)]
+    if differ:
+        raise SystemExit(f"fused_detect differs from the parent's kernel: "
+                         f"{differ}")
 
     # the fused plan against the gated staged plan on one tracked frame,
     # same bins and corridors, host clock to synchronize (in turns)
@@ -1950,37 +2086,77 @@ def main(argv=None) -> int:
         return (time.perf_counter() - t0) / reps * 1e3
 
     plan_cmp = {"frame": f.t, "plain_gated_ms": [], "fused_ms": []}
-    for order in ("gated", "fused", "fused", "gated"):
+    orders = ("gated", "fused", "fused", "gated")
+    if parent_fused is not None:
+        plan_cmp["fused_ms_parent_kernel"] = []
+        orders = ("gated", "parent", "fused", "fused", "parent", "gated")
+    for order in orders:
         if order == "gated":
             plan_cmp["plain_gated_ms"].append(plan_ms(
                 lambda: tp.gated_plan.run(img_dev, bins)))
-        else:
+        elif order == "fused":
             plan_cmp["fused_ms"].append(plan_ms(
                 lambda: tp.fused_plan.run(img_dev, bins, cors)))
-    t0 = time.perf_counter()
-    tp_timed, _ = track_run(None)
-    loop_s = time.perf_counter() - t0
+        else:
+            with parent_kernel_swapped():
+                plan_cmp["fused_ms_parent_kernel"].append(plan_ms(
+                    lambda: tp.fused_plan.run(img_dev, bins, cors)))
+
+    def swapped(parent):
+        return parent_kernel_swapped() if parent else contextlib.nullcontext()
+
+    def runs_in_turns(measure):
+        """``measure(parent)`` three times over, in turns (parent, this,
+        this, parent) with --parent, else four runs of this tree's: the
+        runs of each, in order."""
+        turns = (False,) * 4 if parent_fused is None else (
+            (True, False, False, True) * 3)
+        runs = {False: [], True: []}
+        for parent in turns:
+            with swapped(parent):
+                runs[parent].append(measure(parent))
+        return runs
+
+    def spread(xs):
+        return {"runs": xs, "median": float(np.median(xs)), "min": min(xs),
+                "max": max(xs)}
+
+    def loop_fps(parent):
+        t0 = time.perf_counter()
+        track_run(None)
+        return len(cycle) / (time.perf_counter() - t0)
+
+    loop = runs_in_turns(loop_fps)
     plan_cmp["tracking_loop"] = {
-        "frames": len(cycle), "seconds": loop_s,
-        "frames_per_s": len(cycle) / loop_s,
+        "frames": len(cycle), "frames_per_s": spread(loop[False]),
         "note": "launch counting syncs each frame; the tracker reads each "
                 "frame's peaks back to the host anyway"}
+    if parent_fused is not None:
+        plan_cmp["tracking_loop_parent_kernel"] = {
+            "frames": len(cycle), "frames_per_s": spread(loop[True])}
     emit({"phase": "fused_plan_vs_gated_plan", "hw": [H, W], **plan_cmp})
 
-    e2e = {}
-    for name, d in (("boom", det_boom), ("boom+gemmini", det_int),
-                    ("fused_detector", det_fused)):
+    def batch_ms(d):
         d.detect_batch(frames_dev)
         torch.cuda.synchronize()
         reps = 10
         t0 = time.perf_counter()
         for _ in range(reps):
-            r = d.detect_batch(frames_dev)
+            d.detect_batch(frames_dev)
         torch.cuda.synchronize()
-        sec = (time.perf_counter() - t0) / reps
-        e2e[name] = {"ms_per_batch": sec * 1e3,
-                     "frames_per_s": DEPLOY_BATCH / sec}
-    del r
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def batch_numbers(ms):
+        return {"ms_per_batch": spread(ms),
+                "frames_per_s": DEPLOY_BATCH / float(np.median(ms)) * 1e3}
+
+    e2e = {name: batch_numbers([batch_ms(d)]) for name, d in (
+        ("boom", det_boom), ("boom+gemmini", det_int))}
+    # the fused detector in turns with the parent's kernel (--parent)
+    fused_runs = runs_in_turns(lambda parent: batch_ms(det_fused))
+    e2e["fused_detector"] = batch_numbers(fused_runs[False])
+    if parent_fused is not None:
+        e2e["fused_detector_parent_kernel"] = batch_numbers(fused_runs[True])
     emit({"phase": "end_to_end", "hw": [H, W], "batch": DEPLOY_BATCH,
           "input": "device-resident batch, host clock to synchronize",
           "results": e2e})
@@ -2025,6 +2201,10 @@ def main(argv=None) -> int:
     profiled(det_boom, "boom, auto compact", "main_path",
              {"stage_ms": stage_ms})
     profiled(det_fused, "fused detector, auto compact", "fused_detector", {})
+    if parent_fused is not None:
+        with parent_kernel_swapped():
+            profiled(det_fused, "fused detector, auto compact, the parent's "
+                     "fused_detect kernel", "fused_detector_parent_kernel", {})
 
     def conv_numbers(path):
         st = conv_times[path]     # the path's two launches of one batch

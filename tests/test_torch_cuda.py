@@ -7,6 +7,7 @@ This file imports nothing of the JAX package, so it runs where JAX is not
 installed.
 """
 
+import ctypes
 import dataclasses
 import json
 
@@ -122,23 +123,42 @@ def test_detector_on_card_equals_cpu(card, platform):
         assert torch.equal(got.valid.cpu(), want.valid)
 
 
+def _fused_cases(x, cfg):
+    """(corridors, max_edges) of the fused kernel's card tests on frames
+    ``x``: none, the full fan, a narrow corridor with a small buffer; on
+    the 300x250 frames (3 compaction chunks a frame, 128 rows each) also a
+    buffer 10 rows past the first chunk's edges of the frame with the
+    fewest there, so that it cuts that frame inside its second chunk."""
+    cases = [(None, 4096), (full_corridors(3), 4096),
+             (np.array([[0.6, 0.8, 5.0, 40.0]], np.float32), 64)]
+    if tuple(x.shape[1:]) == (300, 250):
+        rows = fused_mod.CHUNK_WORDS // -(-250 // 32)
+        w = ref.fused_weights(x, cfg=cfg, edge_threshold=250.0)
+        first = int((w.reshape(-1, 300, 250)[:, :rows] > 0).sum((1, 2)).min())
+        cases.append((None, first + 10))
+    return cases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [
     CannyConfig(), CannyConfig(integer=True), CannyConfig(fused=True),
     CannyConfig(variant="paper"), CannyConfig(hysteresis_iters=30, border=0),
 ], ids=["full", "integer", "fused-masks", "paper", "wide-halo"])
-@pytest.mark.parametrize("shape", [(3, 45, 70), (1, 21, 19), (2, 120, 160)])
+@pytest.mark.parametrize("shape", [(3, 45, 70), (1, 21, 19), (2, 120, 160),
+                                   (2, 130, 200), (2, 300, 250)])
 def test_fused_kernel_bit_exact_on_card(card, rng, cfg, shape):
     """The kernel equals its plain version on a CPU copy and the card's
     staged Canny -> threshold -> corridor -> compaction, bit for bit:
-    frames smaller than a tile, overflow, corridors, every config."""
+    frames smaller than a tile, H and W not multiples of the tile's
+    (130x200: four tiles and 2 rows down, one and 72 columns across, W
+    not whole keep words either), frames of several compaction chunks
+    (300x250: 3 a frame) with ``max_edges`` cutting a frame inside a
+    chunk, overflow, corridors, every config."""
     if shape[1] == 120:
         x = _t(scenario_batch(["converging", "rain"], 120, 160)[0])
     else:
         x = _t(rng.uniform(0, 255, shape).astype(np.float32))
-    for cor, max_edges in ((None, 4096), (full_corridors(3), 4096),
-                           (np.array([[0.6, 0.8, 5.0, 40.0]], np.float32),
-                            64)):
+    for cor, max_edges in _fused_cases(x, cfg):
         c = None if cor is None else _t(cor)
         before = fused_mod.launches
         got = fused_mod.fused_detect(x.to(card), None if c is None
@@ -184,13 +204,35 @@ def test_fused_kernel_edge_threshold_on_card(card, rng, threshold):
 
 @pytest.mark.cuda
 def test_fused_kernel_smem_formula_matches_the_source(card):
-    """The wrapper's shared-memory check uses the kernel's own formula."""
+    """The wrapper's shared-memory check uses the kernel's own formula, and
+    its launch plan (tile, shared memory, blocks a frame, hysteresis
+    launches, the long-hysteresis threshold, the compaction's chunks,
+    blocks and flag words) is the C entry's, at the main-path shapes and
+    ragged ones."""
     lib = fused_mod._lib()
-    for iters in (0, 1, 8, 30, 60):
+    for iters in (0, 1, 8, 30, 45, 46, 47, 60):
         for paper in (False, True):
             for fused in (False, True):
                 assert lib.fused_detect_smem_bytes(iters, paper, fused) == (
                     fused_mod.smem_bytes(iters, paper, fused))
+                cfg = CannyConfig(hysteresis_iters=iters, fused=fused,
+                                  variant="paper" if paper else "full")
+                for n, h, w, max_edges in ((8, 720, 1280, 57600),
+                                           (1, 720, 1280, 57600),
+                                           (3, 21, 19, 64),
+                                           (2, 300, 250, 0)):
+                    out = (ctypes.c_longlong * 9)()
+                    lib.fused_detect_plan(iters, paper, fused, n, h, w,
+                                          max_edges, out)
+                    plan = fused_mod.launch_plan(cfg, n, h, w, max_edges)
+                    first = plan["planes_from_passes"]
+                    assert list(out) == [
+                        *plan["tile"], plan["smem_bytes"],
+                        plan["tile_blocks_a_frame"],
+                        plan["hysteresis_launches"],
+                        -1 if first is None else first,
+                        plan["chunks_a_frame"], plan["compact_blocks"],
+                        plan["flag_words"]]
 
 
 @pytest.mark.cuda
@@ -199,20 +241,22 @@ def test_fused_kernel_smem_formula_matches_the_source(card):
     CannyConfig(grad_dtype="int8"), CannyConfig(grad_dtype="int8", fused=True),
     CannyConfig(grad_dtype="int8", variant="paper"),
 ], ids=["f16", "f16-fused", "int8", "int8-fused", "int8-paper"])
-@pytest.mark.parametrize("shape", [(3, 45, 70), (1, 21, 19), (2, 120, 160)])
+@pytest.mark.parametrize("shape", [(3, 45, 70), (1, 21, 19), (2, 120, 160),
+                                   (2, 130, 200), (2, 300, 250)])
 def test_fused_kernel_gradient_tiers_bit_exact_on_card(card, rng, cfg, shape):
     """The f16 and int8 tiers equal the card's staged path bit for bit
     (the conv kernel's f16 chains; the int8 scales from the pre-pass), and
     int8 also the plain version on a CPU copy (integer convs are exact in
-    any order).  Frames include a dark one, so each keeps its own scale."""
+    any order).  Frames include a dark one, so each keeps its own scale;
+    the shapes and ``max_edges`` are those of
+    :func:`test_fused_kernel_bit_exact_on_card`, ragged against the tile
+    and the compaction's chunks."""
     if shape[1] == 120:
         x = _t(scenario_batch(["converging", "night"], 120, 160)[0])
     else:
         x = _t(rng.uniform(0, 255, shape).astype(np.float32))
     x[0] *= 0.25
-    for cor, max_edges in ((None, 4096),
-                           (np.array([[0.6, 0.8, 5.0, 40.0]], np.float32),
-                            64)):
+    for cor, max_edges in _fused_cases(x, cfg):
         c = None if cor is None else _t(cor)
         before = fused_mod.launches
         got = fused_mod.fused_detect(x.to(card), None if c is None
@@ -260,8 +304,8 @@ def _serpentine(H, W, lo=30.0, hi=120.0, seed=0, noise=True):
 ], ids=["f32", "integer", "fused-masks", "integer-fused", "f16", "int8"])
 def test_fused_kernel_long_hysteresis_bit_exact_on_card(card, rng, cfg,
                                                         iters):
-    """At 45, 60 and 100 passes (past the tile's shared memory, except the
-    fused masks at 45, whose tile still fits) the kernel is one launch,
+    """At 45, 60 and 100 passes (past the tile's shared memory) the kernel
+    is one launch,
     bit-exact with the plain version on the card and the card's staged
     path, on scenario frames and a serpentine chain that needs the passes,
     under noise and bare; the CPU's plain version too, for the integer and

@@ -352,11 +352,12 @@ def test_kernel_refuses_cpu_tensor_and_sizes_its_tile():
     with pytest.raises(ValueError, match="CUDA"):
         fused_mod.fused_detect(torch.zeros((40, 50)), cfg=CannyConfig(),
                                edge_threshold=250.0, max_edges=64)
-    # the default tile (8 hysteresis passes) stays in the 48 KB static
-    # limit; every halo that fits keeps the tile, a longer one is admitted
-    # and goes through device memory
-    assert fused_mod.smem_bytes(8, False, False) == 40656
-    assert fused_mod.smem_bytes(8, False, False) <= 48 * 1024
+    # the default tile (8 hysteresis passes) leaves room for two blocks
+    # an SM (228 KB, 1 KB of it each block's own; two blocks of 16 warps
+    # are what the registers allow); every halo that fits keeps the tile,
+    # a longer one is admitted and goes through device memory
+    assert fused_mod.smem_bytes(8, False, False) == 72144
+    assert 2 * (fused_mod.smem_bytes(8, False, False) + 1024) <= 228 * 1024
     fits = [i for i in range(80)
             if fused_mod.smem_bytes(i, False, False) <= fused_mod.MAX_SMEM]
     assert fits == list(range(fits[-1] + 1)) and 30 < fits[-1] < 60
@@ -469,12 +470,12 @@ def test_long_hysteresis_schedule_equals_whole_frame_passes(iters):
         assert (want != _jacobi(strong, weak, iters - 10)).any()
     cfg = CannyConfig(hysteresis_iters=iters)
     assert fused_mod.hysteresis_schedule(cfg) == (
-        _schedule(iters, fused_mod.HYST_HALO) if iters > 44 else [])
+        _schedule(iters, fused_mod.HYST_HALO) if iters > 41 else [])
     assert fused_mod.hysteresis_schedule(
         dataclasses.replace(cfg, variant="paper")) == []
     assert fused_mod.hysteresis_schedule(
         dataclasses.replace(cfg, fused=True)) == (
-        _schedule(iters, fused_mod.HYST_HALO) if iters > 54 else [])
+        _schedule(iters, fused_mod.HYST_HALO) if iters > 41 else [])
 
 
 def _snake_frames(lo=30.0, hi=120.0, noise=True):
@@ -532,3 +533,304 @@ def test_fused_detect_plain_long_hysteresis_matches_reference(iters, cfg):
     fewer = ops.fused_detect(_t(imgs), None, cfg=dataclasses.replace(
         cfg, hysteresis_iters=45), edge_threshold=250.0, max_edges=512)
     assert (fewer[2] < got[2]).all()
+
+
+# --- the tile kernel's bit-packed hysteresis ----------------------------------
+
+
+def _pack_rows(bits):
+    """(h, w) bools -> (h, ceil(w / 32)) uint32 words, bit b of word k the
+    pixel 32 k + b: the layout of the tile kernel's bit planes."""
+    h, w = bits.shape
+    nw = -(-w // 32)
+    padded = np.zeros((h, nw * 32), bool)
+    padded[:, :w] = bits
+    weights = (np.uint32(1) << np.arange(32, dtype=np.uint32))
+    return (padded.reshape(h, nw, 32) * weights).sum(-1, dtype=np.uint32)
+
+
+def _unpack_rows(words, w):
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(words.shape[0], -1)[:, :w].astype(bool)
+
+
+def _dilate_words(s):
+    """dilate3x3 of a bit plane, word by word as the kernel's dilate_row:
+    shifts by one bit with the carry from the neighbouring word, ORed over
+    three rows, zeros beyond the plane."""
+    zero = np.zeros((s.shape[0], 1), np.uint32)
+    lo = np.concatenate([zero, s[:, :-1]], 1)   # the word to the left
+    hi = np.concatenate([s[:, 1:], zero], 1)    # the word to the right
+    row = s | (s << 1) | (lo >> 31) | (s >> 1) | (hi << 31)
+    pad = np.zeros((1, s.shape[1]), np.uint32)
+    up = np.concatenate([pad, row[:-1]])
+    down = np.concatenate([row[1:], pad])
+    return row | up | down
+
+
+def _windows(frame, tile_h, tile_w, r):
+    """Each tile's window of ``frame`` with radius ``r``, zeros outside the
+    frame: ``(y0, x0, window)`` for every tile."""
+    H, W = frame.shape
+    p = np.zeros((H + 2 * r + tile_h, W + 2 * r + tile_w), frame.dtype)
+    p[r:r + H, r:r + W] = frame
+    for y0 in range(0, H, tile_h):
+        for x0 in range(0, W, tile_w):
+            yield y0, x0, p[y0:y0 + tile_h + 2 * r, x0:x0 + tile_w + 2 * r]
+
+
+def _bit_tile_hysteresis(strong, weak, passes, tile_h, tile_w):
+    """The tile kernel's hysteresis in numpy: each tile's window (radius
+    ``passes``, zeros outside the frame) packed into words, ``passes``
+    Jacobi passes ``S |= Wk & dilate3x3(S)`` over the whole window with
+    zeros beyond it, the tile's bits kept."""
+    H, W = strong.shape
+    r = passes
+    out = np.zeros((H, W), bool)
+    wins = zip(_windows(strong, tile_h, tile_w, r),
+               _windows(weak, tile_h, tile_w, r))
+    for (y0, x0, s_win), (_, _, w_win) in wins:
+        s, wk = _pack_rows(s_win), _pack_rows(w_win)
+        for _ in range(passes):
+            s = s | (wk & _dilate_words(s))
+        tile = _unpack_rows(s, tile_w + 2 * r)[r:r + tile_h, r:r + tile_w]
+        h, w = min(tile_h, H - y0), min(tile_w, W - x0)
+        out[y0:y0 + h, x0:x0 + w] = tile[:h, :w]
+    return out
+
+
+def _byte_tile_hysteresis(strong, weak, passes, tile_h, tile_w):
+    """The byte form the kernel had before: one byte a pixel (1 strong,
+    2 weak), pass k updating the window of radius passes - k - 1 from the
+    previous pass's values."""
+    H, W = strong.shape
+    r = passes
+    state = strong.astype(np.uint8) | (weak & ~strong).astype(np.uint8) << 1
+    out = np.zeros((H, W), bool)
+    for y0, x0, win in _windows(state, tile_h, tile_w, r):
+        cur = win.copy()
+        hs, ws = cur.shape
+        for k in range(passes):
+            lo = k + 1
+            nxt = cur.copy()
+            core = cur[lo:hs - lo, lo:ws - lo]
+            nb = np.zeros_like(core, bool)
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    nb |= (cur[lo + dy:hs - lo + dy, lo + dx:ws - lo + dx]
+                           & 1).astype(bool)
+            nxt[lo:hs - lo, lo:ws - lo] = np.where((core == 2) & nb, 3, core)
+            cur = nxt
+        h, w = min(tile_h, H - y0), min(tile_w, W - x0)
+        out[y0:y0 + h, x0:x0 + w] = (cur[r:r + h, r:r + w] & 1).astype(bool)
+    return out
+
+
+def _serpentine_bits(H, W, seed):
+    """Weak pixels on a serpentine path (it needs every pass) and seeded
+    noise; a few strong seeds, one at the path's start."""
+    rng = np.random.default_rng(seed)
+    weak = np.zeros((H, W), bool)
+    for i, y in enumerate(range(1, H, 4)):
+        weak[y, 1:W - 1] = True
+        x = W - 2 if i % 2 == 0 else 1
+        weak[y:min(y + 5, H), x] = True
+    weak |= rng.random((H, W)) < 0.08
+    strong = np.zeros((H, W), bool)
+    strong[1, 1] = True
+    strong |= rng.random((H, W)) < 0.005
+    return strong, weak & ~strong
+
+
+@pytest.mark.parametrize("shape", [(37, 75), (70, 141)],
+                         ids=["37x75", "70x141"])
+@pytest.mark.parametrize("passes", [0, 1, 8, 30])
+def test_bit_hysteresis_equals_jacobi_and_byte_form(passes, shape):
+    """The tile kernel's bit-packed hysteresis (word shifts with carries,
+    three rows ORed, zeros beyond the window) equals ``passes`` whole-frame
+    Jacobi passes and the byte form it replaced, at the kernel's own tile
+    and at a 32x8 one, on frames whose tiles and windows cross word
+    boundaries and the frame's edges; so does the paper variant's single
+    dilation (its weak bits include the strong ones)."""
+    H, W = shape
+    strong, weak = _serpentine_bits(H, W, seed=passes)
+    want = _jacobi(strong, weak, passes)
+    for tile_h, tile_w in ((fused_mod.TILE_H, fused_mod.TILE_W), (8, 32)):
+        got = _bit_tile_hysteresis(strong, weak, passes, tile_h, tile_w)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            _byte_tile_hysteresis(strong, weak, passes, tile_h, tile_w), want)
+    edge = strong | weak
+    np.testing.assert_array_equal(
+        _bit_tile_hysteresis(strong, edge, 1, 8, 32),
+        _jacobi(strong, edge, 1))
+    if passes >= 8:     # the passes matter: fewer give other edges
+        assert (want != _jacobi(strong, weak, passes - 4)).any()
+
+
+def test_bit_words_shift_with_carries():
+    """dilate_row's carries: a pixel at a word's last bit reaches the next
+    word's first, one at a word's first bit the last of the word before;
+    nothing wraps round a row, and the bits past the window's width never
+    enter S (their weak bits are zero)."""
+    bits = np.zeros((3, 70), bool)
+    bits[1, 0] = bits[1, 31] = bits[1, 64] = bits[1, 69] = True
+    got = _unpack_rows(_dilate_words(_pack_rows(bits)), 70)
+    want = np.zeros_like(bits)
+    for x in (0, 31, 64, 69):
+        want[:, max(x - 1, 0):x + 2] = True
+    np.testing.assert_array_equal(got, want)
+    s = _pack_rows(bits)
+    s = s | (_pack_rows(np.ones_like(bits)) & _dilate_words(s))
+    assert not _unpack_rows(s, 96)[:, 70:].any()
+
+
+# --- the single-pass look-back compaction -------------------------------------
+
+
+def _lookback_compaction(keep, width, max_edges, chunk_words, rng):
+    """The compaction kernel in numpy: ``keep`` (N, H, nseg) uint32 keep
+    words cut into chunks of ``chunk_words`` in raster order, frame by
+    frame, one ticket each.  Every chunk publishes its popcount (AGG); then
+    the chunks resolve in a random order, each adding its frame's earlier
+    chunks' published values back to the first PREFIX (a frame's first
+    chunk has its prefix at once) and scattering its pixels from that
+    rank; the frame's last chunk writes the count, and the rows from it to
+    ``max_edges`` are cleared."""
+    N, H, nseg = keep.shape
+    S = H * nseg
+    cpf = -(-S // chunk_words)
+    words = keep.reshape(N, S)
+    cxy = np.full((N, max_edges, 3), np.nan, np.float32)   # unwritten
+    cw = np.full((N, max_edges), np.nan, np.float32)
+    counts = np.full(N, -1, np.int32)
+    flags = []
+    for t in range(N * cpf):
+        n, j = divmod(t, cpf)
+        chunk = words[n, j * chunk_words:(j + 1) * chunk_words]
+        agg = int(sum(int(w).bit_count() for w in chunk))
+        flags.append(["PREFIX" if j == 0 else "AGG", agg])
+    for t in rng.permutation(N * cpf):
+        n, j = divmod(int(t), cpf)
+        excl, k = 0, int(t) - 1
+        while j > 0:
+            status, value = flags[k]
+            excl += value
+            if status == "PREFIX":
+                break
+            k -= 1
+        agg = flags[t][1]
+        flags[t] = ["PREFIX", excl + agg]
+        g0 = j * chunk_words
+        chunk = words[n, g0:g0 + chunk_words]
+        bits = (chunk[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+        g, b = np.nonzero(bits)                  # raster order in the chunk
+        slot = excl + np.arange(g.size)
+        ok = slot < max_edges
+        y, s = np.divmod(g0 + g[ok], nseg)
+        cxy[n, slot[ok]] = np.stack([s * 32 + b[ok], y, np.ones_like(y)],
+                                    1).astype(np.float32)
+        cw[n, slot[ok]] = 1.0
+        if j == cpf - 1:
+            counts[n] = min(excl + agg, max_edges)
+    for n in range(N):     # the clearing blocks
+        cxy[n, counts[n]:] = 0.0
+        cw[n, counts[n]:] = 0.0
+    return cxy, cw, counts
+
+
+def _keep_words(weights, width):
+    """(N, H, W) 0/1 weights -> (N, H, ceil(W / 32)) keep words."""
+    N, Hh, Ww = weights.shape
+    nseg = -(-width // 32)
+    padded = np.zeros((N, Hh, nseg * 32), bool)
+    padded[..., :Ww] = weights > 0
+    return _pack_rows(padded.reshape(N * Hh, -1)).reshape(N, Hh, nseg)
+
+
+@pytest.mark.parametrize("case", [
+    "chunk_splits_rows", "max_edges_mid_chunk", "empty_frame", "overflow",
+    "kernel_chunk",
+])
+def test_lookback_compaction_matches_compact_raster(case):
+    """The look-back compaction, chunks resolved in random orders, equals
+    ``compact_raster`` (the plain version): chunks that end inside a row
+    (5 words over rows of 3 segments), ``max_edges`` landing inside a
+    chunk, a frame with no edge beside two with edges, a frame with more
+    edges than ``max_edges``, and the kernel's own chunk (4 chunks a
+    frame)."""
+    rng = np.random.default_rng(22)
+    shape, density, max_edges, chunk = {
+        "chunk_splits_rows": ((3, 9, 70), 0.3, 4096, 5),
+        "max_edges_mid_chunk": ((2, 12, 70), 0.4, 37, 4),
+        "empty_frame": ((3, 10, 70), 0.2, 512, 7),
+        "overflow": ((2, 20, 100), 0.9, 300, 6),
+        "kernel_chunk": ((2, 90, 1300), 0.02, 2048, fused_mod.CHUNK_WORDS),
+    }[case]
+    N, Hh, Ww = shape
+    weights = (rng.random(shape) < density).astype(np.float32)
+    if case == "empty_frame":
+        weights[1] = 0.0
+    keep = _keep_words(weights, Ww)
+    S = Hh * keep.shape[2]
+    if case == "chunk_splits_rows":
+        assert S % chunk and chunk % keep.shape[2]
+    if case == "kernel_chunk":
+        assert -(-S // chunk) == 4
+    want = ops.compact_raster(_t(weights.reshape(N, -1)), width=Ww,
+                              max_edges=max_edges)
+    edges = weights.reshape(N, -1).sum(-1)
+    if case == "max_edges_mid_chunk":
+        # the cut falls inside a chunk of every frame
+        assert ((edges > max_edges)).all()
+    if case == "overflow":
+        assert (edges > max_edges).all()
+    for order in range(3):
+        got = _lookback_compaction(keep, Ww, max_edges, chunk,
+                                   np.random.default_rng(order))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b.numpy())
+
+
+# --- the launch plan ------------------------------------------------------------
+
+
+def test_launch_plan_pins_the_main_path_shapes():
+    """The wrapper's mirror of the C entry's launch plan at the two
+    main-path shapes: a 720x1280 batch of 8 and one tracking frame, at the
+    default config: 128x32 tiles, 230 blocks a frame (10 of them only 16
+    rows deep), 72144 bytes of shared memory, no hysteresis launch; the
+    compaction's 29 chunks a frame and 29 clearing blocks a frame of the
+    57600-row buffer.  The long-hysteresis threshold: 42 passes with
+    either mask set, none for the paper variant."""
+    cap = ops.default_max_edges(720 * 1280)
+    assert cap == 57600
+    batch = fused_mod.launch_plan(CannyConfig(), 8, 720, 1280, cap)
+    assert batch == {
+        "tile": (32, 128), "smem_bytes": 72144, "tile_blocks_a_frame": 230,
+        "hysteresis_launches": 0, "planes_from_passes": 42,
+        "chunks_a_frame": 29, "compact_blocks": 8 * 29 + 8 * 29,
+        "flag_words": 8 * 29 + 1}
+    frame = fused_mod.launch_plan(CannyConfig(), 1, 720, 1280, cap)
+    assert frame == {**batch, "compact_blocks": 29 + 29, "flag_words": 30}
+    for kw, first in (({}, 42), ({"fused": True}, 42),
+                      ({"integer": True}, 42), ({"grad_dtype": "int8"}, 42)):
+        at = fused_mod.launch_plan(CannyConfig(hysteresis_iters=first, **kw),
+                                   8, 720, 1280, cap)
+        below = fused_mod.launch_plan(
+            CannyConfig(hysteresis_iters=first - 1, **kw), 8, 720, 1280, cap)
+        assert at["planes_from_passes"] == below["planes_from_passes"] == first
+        assert below["hysteresis_launches"] == 0
+        assert below["smem_bytes"] <= fused_mod.MAX_SMEM
+        assert at["hysteresis_launches"] == 3      # 16 + 16 + 10
+        assert at["smem_bytes"] == fused_mod.smem_bytes(0, False,
+                                                        kw.get("fused", False))
+    paper = fused_mod.launch_plan(CannyConfig(variant="paper",
+                                              hysteresis_iters=100),
+                                  8, 720, 1280, cap)
+    assert paper["planes_from_passes"] is None
+    assert paper["hysteresis_launches"] == 0
+    # a frame smaller than a tile, and W not a multiple of 32
+    tiny = fused_mod.launch_plan(CannyConfig(), 3, 21, 19, 64)
+    assert (tiny["tile_blocks_a_frame"], tiny["chunks_a_frame"],
+            tiny["compact_blocks"], tiny["flag_words"]) == (1, 1, 6, 4)
