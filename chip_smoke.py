@@ -47,9 +47,10 @@ device times beside ``torch._int_mm``'s and ``torch.mm``'s and profiler
 traces of each; the LM kernels'
 times beside SDPA and their bounds, and one attention launch profiled
 (device time, TFLOP/s, registers, blocks an SM).  ``--parent DIR`` (an
-unpacked ``git archive`` of the parent commit) builds that tree's SSD and
-``fused_detect`` kernels and times each beside this tree's on the same
-inputs; the fused detector's batch and the tracking loop are timed in
+unpacked ``git archive`` of the parent commit) builds that tree's conv, SSD
+and ``fused_detect`` kernels and times each beside this tree's on the same
+inputs (the conv at every launch of the staged Canny, bit for bit,
+``conv_shape_times``); the fused detector's batch and the tracking loop are timed in
 turns with the parent's fused kernel swapped in (parent, this, this,
 parent, three times), and its profiled window runs once on it.
 
@@ -285,16 +286,53 @@ def parent_ssd_kernel(tree: Path):
     return run
 
 
+def parent_conv_kernel(tree: Path):
+    """The parent commit's conv kernel, built from ``tree`` (an unpacked
+    ``git archive`` of that commit) with this tree's nvcc flags, as
+    ``run(image, masks)`` with the wrapper's shapes and types, through its
+    own C entries (no instance argument)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tiles import acc_dtype
+
+    src = (Path(tree) / "src" / "repro_torch" / "kernels" / "csrc"
+           / "conv2d.cu")
+    out = ROOT / "build" / "parent_kernels" / "libconv2d_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    entry = {torch.float32: "conv2d_f32", torch.float16: "conv2d_f16",
+             torch.int32: "conv2d_i32", torch.int8: "conv2d_i8"}
+    for name in entry.values():
+        getattr(lib, name).argtypes = [P, P, P, I, I, I, I, I, I, P]
+        getattr(lib, name).restype = I
+
+    def run(image, masks):
+        img = image[None] if image.ndim == 2 else image
+        N, H, W = img.shape
+        M, kh, kw = masks.shape
+        m = masks.to(acc_dtype(image.dtype)).contiguous()
+        res = torch.empty((N, M, H, W), dtype=m.dtype, device=img.device)
+        rc = getattr(lib, entry[img.dtype])(
+            img.data_ptr(), m.data_ptr(), res.data_ptr(), N, H, W, M, kh, kw,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's conv kernel: CUDA error {rc}")
+        return res[0] if image.ndim == 2 else res
+
+    return run
+
+
 def parent_fused_kernel(tree: Path):
     """The parent commit's ``fused_detect`` kernel, built from ``tree`` (an
     unpacked ``git archive`` of that commit) with this tree's nvcc flags,
-    as ``run(x, corridors, cfg, max_edges) -> (cxy, cw, counts)`` through
-    its own C entry: the masks as device tensors, an offsets scratch
-    between its scan and scatter, and the tile path only (no hysteresis
-    planes: every config timed here keeps its 8 passes in the tile)."""
-    import torch
-
-    from repro_torch.core.canny import device_masks
+    as ``run(x, corridors, cfg, max_edges) -> (cxy, cw, counts)``: this
+    tree's wrapper launching the parent's library, whose C entries must be
+    this tree's (the masks by value from host memory, the launch plan).
+    The launch count does not see these launches."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_detect as fused_mod
 
@@ -304,41 +342,19 @@ def parent_fused_kernel(tree: Path):
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(out))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_detect.argtypes = [P, P, P, I, I, I, P, I, P, P, P, P, P, P, P,
-                                 P, P, I, I, I, I, F, F, F, I, I, P]
-    lib.fused_detect.restype = I
+    lib = fused_mod.bind(ctypes.CDLL(str(out)))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    wrapper = fused_mod.fused_detect
 
     def run(x, cor, cfg, max_edges, edge_threshold=250.0):
-        N, H, W = x.shape
-        dev = x.device
-        masks = device_masks(cfg, dev)
-        nseg = -(-W // 32)
-        bits = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
-        offsets = torch.empty((N, H, nseg), dtype=torch.int32, device=dev)
-        code = fused_mod.tier(cfg)
-        maxima = (torch.empty((2, N), dtype=torch.int32, device=dev)
-                  if cfg.grad_dtype == "int8" else None)
-        cxy = torch.empty((N, max_edges, 3), dtype=torch.float32, device=dev)
-        cw = torch.empty((N, max_edges), dtype=torch.float32, device=dev)
-        counts = torch.empty((N,), dtype=torch.int32, device=dev)
-        rc = lib.fused_detect(
-            x.data_ptr(), masks[0].data_ptr(),
-            None if cfg.fused else masks[1].data_ptr(), code, int(cfg.fused),
-            int(cfg.variant == "paper"),
-            None if cor is None else cor.data_ptr(),
-            0 if cor is None else cor.shape[0], bits.data_ptr(),
-            offsets.data_ptr(),
-            None if maxima is None else maxima[0].data_ptr(),
-            None if maxima is None else maxima[1].data_ptr(), None, None,
-            cxy.data_ptr(), cw.data_ptr(), counts.data_ptr(), N, H, W,
-            max_edges, cfg.low, cfg.high, edge_threshold, cfg.border,
-            cfg.hysteresis_iters, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"the parent's fused_detect kernel: CUDA "
-                               f"error {rc}")
-        return cxy, cw, counts
+        own, count = fused_mod._lib, fused_mod.launches
+        fused_mod._lib = lambda: lib
+        try:
+            return wrapper(x, cor, cfg=cfg, edge_threshold=edge_threshold,
+                           max_edges=max_edges)
+        finally:
+            fused_mod._lib, fused_mod.launches = own, count
 
     return run
 
@@ -1305,10 +1321,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--parent", type=Path, default=None,
-        help="an unpacked tree of the parent commit (git archive): its SSD "
-             "and fused_detect kernels are built and timed beside this "
-             "tree's (lm_times; fused_times, fused_tier_times, and the "
-             "fused detector and tracking loop run on the parent's kernel)")
+        help="an unpacked tree of the parent commit (git archive): its conv, "
+             "SSD and fused_detect kernels are built and timed beside this "
+             "tree's (conv_shape_times; lm_times; fused_times, "
+             "fused_tier_times, and the fused detector and tracking loop "
+             "run on the parent's kernel)")
     args = parser.parse_args(argv)
     import torch
 
@@ -1908,7 +1925,7 @@ def main(argv=None) -> int:
             stages.append({
                 "stage": stage, "shape": list(inp.shape),
                 "dtype": str(inp.dtype).removeprefix("torch."),
-                "ms": cuda_ms(lambda: conv_mod.conv2d_gemm(inp, m)),
+                "ms": device_ms(lambda: conv_mod.conv2d_gemm(inp, m)),
                 "plain_ms": cuda_ms(lambda: ref.conv2d_gemm(inp, m), reps=5),
                 # cuDNN has no integer convolution
                 "library_ms": None if integer else cuda_ms(lambda: F.conv2d(
@@ -1946,6 +1963,78 @@ def main(argv=None) -> int:
         }
     emit({"phase": "conv_times", "by_path": conv_times})
     emit({"phase": "vote_times", "by_path": vote_times})
+
+    # Every conv launch of the staged Canny (each tier's Gauss and Sobel at
+    # 8x720x1280, the fused 7x7 set, one gated tracking frame's pair), as
+    # the main path gives it: recorded from a canny() call.  Device time of
+    # one launch (device_ms); with --parent the parent commit's kernel on
+    # the same inputs, in turns (parent, this, this, parent), and whether
+    # the two agree bit for bit.  Bound as in conv_times; beside it the
+    # device time of one torch clone that moves the launch's bytes (half
+    # read, half written): the memory rate the card reaches on the same
+    # traffic.
+    parent_conv = parent_conv_kernel(args.parent) if args.parent else None
+
+    def canny_convs(x, cfg):
+        seen = []
+        own = conv_mod.conv2d_gemm
+
+        def spy(image, masks, **kw):
+            seen.append((image, masks))
+            return own(image, masks, **kw)
+
+        conv_mod.conv2d_gemm = spy
+        try:
+            canny(x, cfg)
+        finally:
+            conv_mod.conv2d_gemm = own
+        return seen
+
+    conv_rows = []
+    for label, x, cfg in (
+            ("f32", frames_dev, CannyConfig()),
+            ("int32", frames_dev, CannyConfig(integer=True)),
+            ("f16", frames_dev, CannyConfig(grad_dtype="f16")),
+            ("int8", frames_dev, CannyConfig(grad_dtype="int8")),
+            ("fused_f32", frames_dev, CannyConfig(fused=True)),
+            ("frame_f32", frames_dev[1], CannyConfig())):
+        for inp, m in canny_convs(x, cfg):
+            M, kh, kw = m.shape
+            px = inp.numel()
+            acc_size = 2 if inp.dtype == torch.float16 else 4
+            n_bytes = (px * inp.element_size() + px * M * acc_size
+                       + m.numel() * m.element_size())
+            b, by = bound_ms(n_bytes, 2.0 * px * M * kh * kw)
+            run = (lambda inp=inp, m=m: conv_mod.conv2d_gemm(inp, m))
+            same_bytes = torch.empty(n_bytes // 2, dtype=torch.uint8,
+                                     device=dev)
+            row = {"tier": label, "shape": list(inp.shape),
+                   "masks": list(m.shape),
+                   "dtype": str(inp.dtype).removeprefix("torch."),
+                   "instance": conv_mod.instance(kh, kw),
+                   "bound_ms": b, "bound_by": by,
+                   "copy_same_bytes_ms": device_ms(same_bytes.clone)}
+            if parent_conv is None:
+                row["ms"] = device_ms(run)
+            else:
+                prun = (lambda inp=inp, m=m: parent_conv(inp, m))
+                turns = [device_ms(f) for f in (prun, run, run, prun)]
+                row.update(ms=min(turns[1:3]),
+                           parent_ms=min(turns[0], turns[3]),
+                           ms_turns=turns[1:3],
+                           parent_ms_turns=[turns[0], turns[3]],
+                           bit_exact_vs_parent=torch.equal(run(), prun()))
+            conv_rows.append(row)
+    emit({"phase": "conv_shape_times", "rows": conv_rows,
+          "pair_ms": {t: sum(r["ms"] for r in conv_rows if r["tier"] == t)
+                      for t in ("f32", "int32", "f16", "int8", "frame_f32")},
+          "parent_pair_ms": None if parent_conv is None else {
+              t: sum(r["parent_ms"] for r in conv_rows if r["tier"] == t)
+              for t in ("f32", "int32", "f16", "int8", "frame_f32")}})
+    differ = [r for r in conv_rows if not r.get("bit_exact_vs_parent", True)]
+    if differ:
+        raise SystemExit(f"conv2d_gemm differs from the parent's kernel: "
+                         f"{differ}")
 
     # fused_detect at its two main-path shapes: the batched detector's
     # (8 frames, no corridors) and a tracking frame's (1 frame, 8 real

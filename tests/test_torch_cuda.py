@@ -21,6 +21,7 @@ from repro_torch.core import (  # noqa: E402
     CannyConfig, HoughConfig, LineDetector, PipelineConfig, TrackingPipeline,
     full_corridors,
 )
+from repro_torch.core.canny import gradient_masks  # noqa: E402
 from repro_torch.core.hough import _device_raster  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     make_drive_cycle, scenario_batch, scenario_names,
@@ -60,18 +61,35 @@ def _vote_inputs(rng, n_pix, n_theta, n_rho, edge_frac=0.3, batch=None):
     return xy, w, trig
 
 
+# the conv masks of the detector's tiers (core.canny.gradient_masks):
+# name -> (CannyConfig fields, which of the config's mask sets)
+_MASK_SETS = {"gauss": ({}, 0), "sobel": ({}, 1), "fused": ({"fused": True}, 0)}
+_TIER = {"float32": {}, "float16": {"grad_dtype": "f16"},
+         "int32": {"integer": True}, "int8": {"grad_dtype": "int8"}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "int32", "int8", "float16"])
 @pytest.mark.parametrize("hw,masks", [((3, 37, 52), (1, 5, 5)),
                                       ((2, 45, 70), (2, 3, 3)),
-                                      ((1, 21, 19), (3, 7, 7))])
+                                      ((1, 21, 19), (3, 7, 7)),
+                                      # the main paths' shapes and mask sets
+                                      ((8, 720, 1280), "gauss"),
+                                      ((8, 720, 1280), "sobel"),
+                                      ((1, 720, 1280), "fused"),
+                                      ((720, 1280), "gauss"),
+                                      ((720, 1280), "sobel")])
 def test_conv_kernel_matches_plain_on_card(card, rng, dtype, hw, masks):
     if dtype in ("int32", "int8"):
         img = rng.integers(-128 if dtype == "int8" else 0, 127, hw)
-        m = rng.integers(-16, 16, masks).astype(np.int32)
+        m = rng.integers(-16, 16, masks) if isinstance(masks, tuple) else None
     else:
         img = rng.normal(size=hw)
-        m = rng.normal(size=masks)
+        m = rng.normal(size=masks) if isinstance(masks, tuple) else None
+    if m is None:
+        fields, which = _MASK_SETS[masks]
+        m = gradient_masks(CannyConfig(**fields, **_TIER[dtype]))[which]
+    m = m.astype(np.int32) if dtype in ("int32", "int8") else m
     img, m = _t(img.astype(dtype)), _t(m.astype(np.float32 if dtype ==
                                                 "float16" else m.dtype))
     if dtype == "float16":
@@ -88,6 +106,55 @@ def test_conv_kernel_matches_plain_on_card(card, rng, dtype, hw, masks):
         tol = 1e-4 if dtype == "float32" else 0.06
         np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.int32,
+                                   torch.int8])
+def test_conv_unrolled_and_generic_instances_agree_on_card(card, rng, dtype):
+    """Each unrolled instance (mask side 3, 5, 7) gives the generic
+    instance's bits on the same inputs, at ragged shapes and the main
+    path's, with rows by 16-byte copies and element by element; the C
+    entry refuses an instance the masks do not fit."""
+    acc = conv_mod.acc_dtype(dtype)
+    for shape in ((3, 45, 70), (1, 21, 19), (2, 37, 52), (8, 720, 1280)):
+        for mshape in ((1, 5, 5), (2, 3, 3), (3, 7, 7)):
+            if dtype.is_floating_point:
+                x = _t(rng.normal(size=shape)).to(dtype)
+                m = _t(rng.normal(size=mshape)).to(acc)
+            else:
+                x = _t(rng.integers(-128, 128 if dtype == torch.int8 else 256,
+                                    shape)).to(dtype)
+                m = _t(rng.integers(-16, 16, mshape)).to(acc)
+            x, m = x.to(card), m.to(card)
+            k = conv_mod.instance(*mshape[1:])
+            assert k == mshape[1]
+            assert torch.equal(conv_mod.launch(x, m, k),
+                               conv_mod.launch(x, m, 0))
+    x = torch.zeros((1, 8, 8), dtype=dtype, device=card)
+    with pytest.raises(RuntimeError, match="conv2d kernel launch"):
+        conv_mod.launch(x, torch.zeros((1, 5, 5), dtype=acc, device=card), 3)
+
+
+@pytest.mark.cuda
+def test_conv_plan_matches_the_source_on_card(card):
+    """The wrapper's launch plan is the C entry's (instance, tile, threads,
+    grid, shared memory, 16-byte rows) at the main path's shapes and
+    ragged ones, in every type and for the generic instance."""
+    lib = conv_mod._lib()
+    for dtype in (torch.float32, torch.float16, torch.int32, torch.int8):
+        in_b, acc_b = conv_mod._BYTES[dtype]
+        for n, h, w in ((8, 720, 1280), (1, 720, 1280), (3, 21, 19),
+                        (2, 45, 70), (1, 1, 1)):
+            for mshape in ((1, 5, 5), (2, 3, 3), (3, 7, 7), (2, 4, 6),
+                           (4, 15, 15), (1024, 1, 1)):
+                out = (ctypes.c_longlong * 9)()
+                lib.conv2d_plan(in_b, acc_b, n, h, w, *mshape, out)
+                plan = conv_mod.launch_plan(dtype, n, h, w, *mshape)
+                assert list(out) == [
+                    plan["instance"], *plan["tile"], plan["threads"],
+                    *plan["grid"], plan["smem_bytes"],
+                    int(plan["vector_rows"])]
 
 
 @pytest.mark.cuda
