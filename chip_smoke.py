@@ -47,10 +47,11 @@ device times beside ``torch._int_mm``'s and ``torch.mm``'s and profiler
 traces of each; the LM kernels'
 times beside SDPA and their bounds, and one attention launch profiled
 (device time, TFLOP/s, registers, blocks an SM).  ``--parent DIR`` (an
-unpacked ``git archive`` of the parent commit) builds that tree's conv, SSD
-and ``fused_detect`` kernels and times each beside this tree's on the same
-inputs (the conv at every launch of the staged Canny, bit for bit,
-``conv_shape_times``); the fused detector's batch and the tracking loop are timed in
+unpacked ``git archive`` of the parent commit) builds that tree's conv,
+vote, SSD and ``fused_detect`` kernels and times each beside this tree's
+on the same inputs (the conv at every launch of the staged Canny, bit for
+bit, ``conv_shape_times``; the vote at each main-path shape, bit for bit,
+``vote_shape_times``); the fused detector's batch and the tracking loop are timed in
 turns with the parent's fused kernel swapped in (parent, this, this,
 parent, three times), and its profiled window runs once on it.
 
@@ -290,10 +291,11 @@ def parent_conv_kernel(tree: Path):
     """The parent commit's conv kernel, built from ``tree`` (an unpacked
     ``git archive`` of that commit) with this tree's nvcc flags, as
     ``run(image, masks)`` with the wrapper's shapes and types, through its
-    own C entries (no instance argument)."""
+    own C entries, which take the instance as this tree's do."""
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.conv2d_gemm import instance
     from repro_torch.kernels.tiles import acc_dtype
 
     src = (Path(tree) / "src" / "repro_torch" / "kernels" / "csrc"
@@ -307,7 +309,7 @@ def parent_conv_kernel(tree: Path):
     entry = {torch.float32: "conv2d_f32", torch.float16: "conv2d_f16",
              torch.int32: "conv2d_i32", torch.int8: "conv2d_i8"}
     for name in entry.values():
-        getattr(lib, name).argtypes = [P, P, P, I, I, I, I, I, I, P]
+        getattr(lib, name).argtypes = [P, P, P, I, I, I, I, I, I, I, P]
         getattr(lib, name).restype = I
 
     def run(image, masks):
@@ -318,12 +320,139 @@ def parent_conv_kernel(tree: Path):
         res = torch.empty((N, M, H, W), dtype=m.dtype, device=img.device)
         rc = getattr(lib, entry[img.dtype])(
             img.data_ptr(), m.data_ptr(), res.data_ptr(), N, H, W, M, kh, kw,
-            torch.cuda.current_stream().cuda_stream)
+            instance(kh, kw), torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"the parent's conv kernel: CUDA error {rc}")
         return res[0] if image.ndim == 2 else res
 
     return run
+
+
+def parent_vote_kernel(tree: Path):
+    """The parent commit's vote kernel, built from ``tree`` (an unpacked
+    ``git archive`` of that commit) with this tree's nvcc flags, as
+    ``run(xy, w, trig, n_rho, counts) -> votes`` on the wrapper's checked
+    shapes (``w`` (N, P)): its C entry ``hough_vote_f32`` with the parent
+    wrapper's arguments, into an output zeroed first, as that wrapper
+    did.  The launch count does not see these launches."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    src = (Path(tree) / "src" / "repro_torch" / "kernels" / "csrc"
+           / "hough_vote.cu")
+    out = ROOT / "build" / "parent_kernels" / "libhough_vote_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hough_vote_f32.argtypes = [P, L, P, L, P, P, P, I, I, I, I, I, P]
+    lib.hough_vote_f32.restype = I
+
+    def run(xy, w, trig, n_rho, counts):
+        N, n_pix = w.shape
+        C, T = trig.shape
+        res = torch.zeros((N, n_rho, T), dtype=torch.float32, device=w.device)
+        rc = lib.hough_vote_f32(
+            xy.data_ptr(), xy.stride(0) if xy.ndim == 3 else 0,
+            w.data_ptr(), w.stride(0),
+            None if counts is None else counts.data_ptr(), trig.data_ptr(),
+            res.data_ptr(), N, n_pix, C, T, n_rho,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's vote kernel: CUDA error {rc}")
+        return res
+
+    return run
+
+
+def vote_shapes(frames_dev, truths) -> dict:
+    """The vote's main-path operands on the card, by name: ``(xy, w, trig,
+    n_rho, counts)`` with ``w`` (N, P) and ``counts`` (N,) or None, as the
+    wrapper hands them to its C entry.  From the 8 deployment frames: the
+    staged batch's compacted edges ("boom" f32 and "boom+gemmini" integer
+    Canny), the fused batch (``fused_detect``, no corridors), one
+    full-sweep tracking frame (T 180, the staged path's compaction of frame
+    1), one fused tracking frame (frame 1 through ``fused_detect`` with 8
+    corridors around its lines, the 40-bin theta band around its first
+    line); and the dense shared raster (``counts=None``): the "boom" batch's
+    edge maps over all 8 x 720 x 1280 pixels (the default
+    ``HoughConfig(compact=False)``), and four 240x320 frames."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_lines import DEPLOY_HW, FRAME_HW, PLATFORMS
+    from repro_torch.core import CannyConfig, HoughConfig, canny
+    from repro_torch.core.hough import _device_raster, hough_trig, rho_bins
+    from repro_torch.data import scenario_batch, scenario_names
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_detect as fused_mod
+
+    dev = frames_dev.device
+    H, W = DEPLOY_HW
+    N = frames_dev.shape[0]
+    cap = ops.default_max_edges(H * W)
+    trig = torch.from_numpy(hough_trig(H, W, HoughConfig())).to(dev)
+    n_rho = rho_bins(H, W, HoughConfig())
+    raster = _device_raster(H, W, dev)
+    shapes = {}
+    for name, platform in (("boom_batch", "boom"),
+                           ("boom+gemmini_batch", "boom+gemmini")):
+        edges = canny(frames_dev, PLATFORMS[platform].canny)
+        w = (edges.reshape(N, -1) >= 250).float()
+        cxy, cw, cnt = ops.compact_edges(raster, w, max_edges=cap)
+        shapes[name] = (cxy, cw, trig, n_rho, cnt)
+        if platform == "boom":
+            shapes["dense_8x720x1280"] = (raster, w, trig, n_rho, None)
+            one = ops.compact_edges(raster, w[1], max_edges=cap)
+            shapes["frame_t180"] = (one[0], one[1][None], trig, n_rho,
+                                    one[2].reshape(1))
+    cxy, cw, cnt = fused_mod.fused_detect(
+        frames_dev, None, cfg=CannyConfig(), edge_threshold=250.0,
+        max_edges=cap)
+    shapes["fused_batch"] = (cxy, cw, trig, n_rho, cnt)
+    cor = torch.from_numpy(tracker_corridors(truths[1], 8)).to(dev)
+    cxy, cw, cnt = fused_mod.fused_detect(
+        frames_dev[1], cor, cfg=CannyConfig(), edge_threshold=250.0,
+        max_edges=cap)
+    centre = round(math.degrees(truths[1][0][1])) % trig.shape[1]
+    band = (torch.arange(40, device=dev) + centre - 20) % trig.shape[1]
+    shapes["band_t40"] = (cxy, cw[None], trig[:, band].contiguous(), n_rho,
+                          cnt.reshape(1))
+    hs, ws = FRAME_HW
+    small, _ = scenario_batch(scenario_names()[:4], hs, ws, seed=1)
+    w = (canny(torch.from_numpy(np.asarray(small)).to(dev), CannyConfig())
+         .reshape(4, -1) >= 250).float()
+    shapes["dense_4x240x320"] = (
+        _device_raster(hs, ws, dev), w,
+        torch.from_numpy(hough_trig(hs, ws, HoughConfig())).to(dev),
+        rho_bins(hs, ws, HoughConfig()), None)
+    return shapes
+
+
+def vote_bound(xy, w, trig, n_rho, counts) -> tuple[float, str, int]:
+    """The vote's bound on these operands, and its edge rows (rows of
+    nonzero weight inside the counts): each counted row's (x, y, z) and
+    weight read once (with no counts, every weight and the edge rows'
+    coordinates), the counts and trig, the (N, n_rho, T) f32 output
+    written once; 6 operations a (edge row, theta)."""
+    import torch
+
+    N, P = w.shape
+    C, T = trig.shape
+    live = w != 0
+    if counts is not None:
+        live &= torch.arange(P, device=w.device) < counts[:, None]
+        n_bytes = int(counts.clamp(0, P).sum()) * (C * 4 + 4) + N * 4
+    else:
+        n_bytes = N * P * 4
+    rows = int(live.sum())
+    if counts is None:
+        n_bytes += rows * C * 4
+    n_bytes += trig.numel() * 4 + N * n_rho * T * 4
+    b, by = bound_ms(n_bytes, rows * T * 6.0)
+    return b, by, rows
 
 
 def parent_fused_kernel(tree: Path):
@@ -1322,8 +1451,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--parent", type=Path, default=None,
         help="an unpacked tree of the parent commit (git archive): its conv, "
-             "SSD and fused_detect kernels are built and timed beside this "
-             "tree's (conv_shape_times; lm_times; fused_times, "
+             "vote, SSD and fused_detect kernels are built and timed beside "
+             "this tree's (conv_shape_times; vote_shape_times; lm_times; "
+             "fused_times, "
              "fused_tier_times, and the fused detector and tracking loop "
              "run on the parent's kernel)")
     args = parser.parse_args(argv)
@@ -1452,6 +1582,15 @@ def main(argv=None) -> int:
     vote_cases = {
         "compacted_per_frame_xy": (cxy_c, cw_c, cnt_c, trig_c, n_rho),
     }
+    # one tracking frame: full sweep (T 180) and a fused frame's band
+    # (T 40; its edges inside 8 corridors around the frame's lines)
+    vote_cases["frame_t180"] = (cxy_c[1], cw_c[1], cnt_c[1], trig_c, n_rho)
+    keep = ref.corridor_keep(xy_c, torch.from_numpy(
+        tracker_corridors(truths[1], 8)))
+    one = ops.compact_edges(xy_c, w_main[1] * keep, max_edges=cap)
+    centre = round(math.degrees(truths[1][0][1])) % trig_c.shape[1]
+    band = (torch.arange(40) + centre - 20) % trig_c.shape[1]
+    vote_cases["band_t40"] = (*one, trig_c[:, band].contiguous(), n_rho)
     hs, ws = FRAME_HW
     small, _ = scenario_batch(scenario_names()[:4], hs, ws, seed=1)
     w_small = (canny(torch.from_numpy(small), CannyConfig())
@@ -1939,10 +2078,7 @@ def main(argv=None) -> int:
         w_dev = (edges_dev >= 250).float()
         cxy, cw, cnt = ops.compact_edges(_device_raster(H, W, dev), w_dev,
                                          max_edges=cap)
-        n_votes = int(cnt.sum())
-        vb, vby = bound_ms(n_votes * (3 * 4 + 4) + DEPLOY_BATCH * 4
-                           + trig.numel() * 4 + DEPLOY_BATCH * n_rho * T * 4,
-                           n_votes * T * 6.0)
+        vb, vby, edge_rows = vote_bound(cxy, cw, trig, n_rho, cnt)
         binv = torch.floor(ref.rho_product(cxy, trig)).long()
         rows = (torch.arange(cap, device=dev)[None, :, None]
                 < cnt[:, None, None])
@@ -1951,18 +2087,64 @@ def main(argv=None) -> int:
                 * (n_rho * T) + binv * T + torch.arange(T, device=dev))[keep]
         ones = torch.ones_like(flat, dtype=torch.float32)
         vote_times[path] = {
-            "ms": cuda_ms(lambda: vote_mod.hough_vote(
+            "ms": device_ms(lambda: vote_mod.hough_vote(
                 cxy, cw, trig, n_rho=n_rho, counts=cnt)),
             "plain_ms": cuda_ms(lambda: ref.hough_vote(
                 cxy, cw, trig, n_rho=n_rho), reps=5),
             "library_ms": cuda_ms(lambda: torch.bincount(
                 flat, weights=ones, minlength=DEPLOY_BATCH * n_rho * T)),
-            "bound_ms": vb, "bound_by": vby, "edge_rows": n_votes,
+            "bound_ms": vb, "bound_by": vby, "edge_rows": edge_rows,
+            "edge_rows_per_frame": cnt.tolist(),
             "votes_cast": int(flat.numel()), "cap_rows": cap,
             "n_rho": n_rho, "n_theta": T,
         }
     emit({"phase": "conv_times", "by_path": conv_times})
     emit({"phase": "vote_times", "by_path": vote_times})
+
+    # The vote at each main-path shape (vote_shapes): the device time of
+    # one wrapper call (device_ms; its zeroed output, where its plan needs
+    # one, included) beside the bound, with the launch plan; with --parent
+    # the parent commit's kernel on the same operands (its zeroed output
+    # included), in turns (parent, this, this, parent), and whether the two
+    # agree bit for bit.
+    parent_vote = parent_vote_kernel(args.parent) if args.parent else None
+    vote_rows = []
+    for name, (xy, w, trig_s, nr, cnt) in vote_shapes(frames_dev,
+                                                       truths).items():
+        N, P = w.shape
+        b, by, rows = vote_bound(xy, w, trig_s, nr, cnt)
+        plan = vote_mod.launch_plan(
+            N, P, trig_s.shape[1], nr,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        run = (lambda xy=xy, w=w, t=trig_s, nr=nr, c=cnt:
+               vote_mod.hough_vote(xy, w, t, n_rho=nr, counts=c))
+        row = {"shape": name, "frames": N, "rows": P,
+               "n_theta": trig_s.shape[1], "n_rho": nr,
+               "edge_rows": rows,
+               "edge_rows_per_frame": (cnt.tolist() if cnt is not None else
+                                       (w != 0).sum(dim=1).tolist()),
+               "bound_ms": b, "bound_by": by,
+               "plan": {k: plan[k] for k in ("bt", "splits", "rho_ranges",
+                                             "blocks", "smem_bytes",
+                                             "zeroed")},
+               "gather_blocks": plan["gather_blocks"] if cnt is None else 0}
+        if parent_vote is None:
+            row["ms"] = device_ms(run)
+        else:
+            prun = (lambda xy=xy, w=w, t=trig_s, nr=nr, c=cnt:
+                    parent_vote(xy, w, t, nr, c))
+            turns = [device_ms(f) for f in (prun, run, run, prun)]
+            row.update(ms=min(turns[1:3]), parent_ms=min(turns[0], turns[3]),
+                       ms_turns=turns[1:3],
+                       parent_ms_turns=[turns[0], turns[3]],
+                       bit_exact_vs_parent=torch.equal(run(), prun()))
+        vote_rows.append(row)
+    emit({"phase": "vote_shape_times", "rows": vote_rows})
+    differ = [r["shape"] for r in vote_rows
+              if not r.get("bit_exact_vs_parent", True)]
+    if differ:
+        raise SystemExit(f"hough_vote differs from the parent's kernel: "
+                         f"{differ}")
 
     # Every conv launch of the staged Canny (each tier's Gauss and Sobel at
     # 8x720x1280, the fused 7x7 set, one gated tracking frame's pair), as

@@ -22,7 +22,9 @@ from repro_torch.core import (  # noqa: E402
     full_corridors,
 )
 from repro_torch.core.canny import gradient_masks  # noqa: E402
-from repro_torch.core.hough import _device_raster  # noqa: E402
+from repro_torch.core.hough import (  # noqa: E402
+    _device_raster, hough_trig, rho_bins,
+)
 from repro_torch.data import (  # noqa: E402
     make_drive_cycle, scenario_batch, scenario_names,
 )
@@ -31,6 +33,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import conv2d_gemm as conv_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fused_detect as fused_mod  # noqa: E402
+from repro_torch.kernels import hough_vote as vote_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels import tiled_matmul as mm_mod  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -157,20 +160,207 @@ def test_conv_plan_matches_the_source_on_card(card):
                     int(plan["vector_rows"])]
 
 
+def _main_vote_inputs(rng, n_frames, density=0.02):
+    """The main paths' vote operands at 720x1280: the raster's edge pixels
+    (seeded, ``density`` of them) compacted into the cap buffer with their
+    device-held counts, the real trig table and rho bins."""
+    H, W = 720, 1280
+    cap = ops.default_max_edges(H * W)
+    w = _t((rng.uniform(size=(n_frames, H * W)) < density).astype(np.float32))
+    cxy, cw, cnt = ops.compact_edges(_device_raster(H, W, torch.device("cpu")),
+                                     w, max_edges=cap)
+    trig = _t(hough_trig(H, W, HoughConfig()))
+    return cxy, cw, cnt, trig, rho_bins(H, W, HoughConfig())
+
+
+def _vote_on_cpu(xy, w, trig, n_rho, cnt=None):
+    """The plain version on the CPU over each frame's counted rows."""
+    if cnt is not None:
+        m = int(cnt.max()) if cnt.numel() else 0
+        rows = torch.arange(w.shape[-1]) < cnt.reshape(-1, 1)
+        w = torch.where(rows.reshape(w.shape), w, 0.0)[..., :max(m, 1)]
+        xy = xy[..., :max(m, 1), :]
+    return ref.hough_vote(xy, w, trig, n_rho=n_rho)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("per_frame", [False, True])
-def test_vote_kernel_bit_exact_on_card(card, rng, per_frame):
-    xy, w, trig = _vote_inputs(rng, 500, 180, 150, edge_frac=0.2, batch=3)
-    if per_frame:
-        xy = np.stack([xy, xy[::-1].copy(), np.roll(xy, 7, axis=0)])
-    want = ref.hough_vote(_t(xy), _t(w), _t(trig), n_rho=150)
-    got = ops.hough_vote(_t(xy).to(card), _t(w).to(card), _t(trig).to(card),
-                         n_rho=150).cpu()
-    assert torch.equal(got, want)
-    cmp = ops.hough_vote(_t(xy).to(card), _t(w).to(card), _t(trig).to(card),
-                         n_rho=150, compact=True, max_edges=128).cpu()
-    assert torch.equal(cmp, ref.hough_vote_compact(
-        _t(xy), _t(w), _t(trig), n_rho=150, max_edges=128))
+@pytest.mark.parametrize("case", [
+    "shared_xy", "per_frame_xy",
+    # the main paths' shapes: the batch, a full-sweep frame (T 180), a
+    # fused tracking frame's band (T 40), the dense shared raster (no
+    # counts: gathered first) at 240x320 and at the deployment's 720x1280
+    "main_batch", "main_frame_t180", "main_band_t40", "dense_4x240x320",
+    "dense_8x720x1280",
+    # forced plans on the same inputs: splits, rho ranges, counts 0 and P
+    "split_equals_single_pass", "rho_ranges", "counts_0_and_p",
+    # no counts: every row of one frame gathered, none of the other
+    "dense_every_row_and_none",
+    # rows whose rho is NaN, infinite or past 2^31 cast no vote
+    "nan_and_far_rows"])
+def test_vote_kernel_bit_exact_on_card(card, rng, case):
+    """0/1 weights: the kernel gives the plain version's bits (on the
+    CPU) at every plan; each forced plan gives the default plan's."""
+    vote = vote_mod.hough_vote
+    if case in ("shared_xy", "per_frame_xy"):
+        xy, w, trig = _vote_inputs(rng, 500, 180, 150, edge_frac=0.2, batch=3)
+        if case == "per_frame_xy":
+            xy = np.stack([xy, xy[::-1].copy(), np.roll(xy, 7, axis=0)])
+        want = ref.hough_vote(_t(xy), _t(w), _t(trig), n_rho=150)
+        got = ops.hough_vote(_t(xy).to(card), _t(w).to(card),
+                             _t(trig).to(card), n_rho=150).cpu()
+        assert torch.equal(got, want)
+        cmp = ops.hough_vote(_t(xy).to(card), _t(w).to(card),
+                             _t(trig).to(card), n_rho=150, compact=True,
+                             max_edges=128).cpu()
+        assert torch.equal(cmp, ref.hough_vote_compact(
+            _t(xy), _t(w), _t(trig), n_rho=150, max_edges=128))
+        return
+    if case.startswith(("main", "dense")):
+        if case == "dense_every_row_and_none":
+            xy, w, trig = _vote_inputs(rng, 2100, 45, 150, batch=2)
+            xy, w, trig = _t(xy), _t(w), _t(trig)
+            w[0], w[1] = 1.0, 0.0
+            n_rho, cnt = 150, None
+        elif case.startswith("dense"):
+            hs, ws, n, frac = ((240, 320, 4, 0.05)
+                               if case == "dense_4x240x320"
+                               else (720, 1280, 8, 0.002))
+            w = _t((rng.uniform(size=(n, hs * ws)) < frac)
+                   .astype(np.float32))
+            xy = _device_raster(hs, ws, torch.device("cpu"))
+            trig = _t(hough_trig(hs, ws, HoughConfig()))
+            n_rho, cnt = rho_bins(hs, ws, HoughConfig()), None
+        else:
+            xy, w, cnt, trig, n_rho = _main_vote_inputs(
+                rng, 8 if case == "main_batch" else 1)
+            if case != "main_batch":
+                xy, w, cnt = xy[0], w[0], cnt[0]
+            if case == "main_band_t40":
+                trig = trig[:, (np.arange(40) + 150) % 180].contiguous()
+        got = vote(xy.to(card), w.to(card), trig.to(card), n_rho=n_rho,
+                   counts=None if cnt is None else cnt.to(card)).cpu()
+        if cnt is None:
+            # the plain version over each frame's rows of nonzero weight
+            # (the others add zeros), padded with rows of weight 0
+            keep = [torch.nonzero(f).flatten() for f in w]
+            m = max(1, max(len(k) for k in keep))
+            xyb = xy.expand(w.shape[0], *xy.shape) if xy.ndim == 2 else xy
+            xy = torch.zeros((w.shape[0], m, xy.shape[-1]))
+            wk = torch.zeros((w.shape[0], m))
+            for i, k in enumerate(keep):
+                xy[i, :len(k)], wk[i, :len(k)] = xyb[i, k], w[i, k]
+            w = wk
+        want = _vote_on_cpu(xy, w, trig, n_rho, cnt)
+        assert torch.equal(got, want)
+        return
+    if case == "nan_and_far_rows":
+        xy, w, trig = _vote_inputs(rng, 600, 45, 150, edge_frac=0.5, batch=2)
+        xy = np.stack([xy, xy.copy()])
+        xy[0, ::7, 0] = np.nan
+        xy[0, 1::7, 1] = np.inf
+        xy[1, ::5, 0] = 3e9
+        xy[1, 1::5, 1] = -3e9
+        xy, w, trig = _t(xy), _t(w), _t(trig)
+        got = vote(xy.to(card), w.to(card), trig.to(card), n_rho=150).cpu()
+        assert torch.equal(got, ref.hough_vote(xy, w, trig, n_rho=150))
+        return
+    # forced plans through the wrapper's launch
+    n_rho = 150
+    xy, w, trig = _vote_inputs(rng, 700, 45, n_rho, edge_frac=0.3, batch=3)
+    xy, w, trig = _t(xy), _t(w), _t(trig)
+    cnt = {"counts_0_and_p": torch.tensor([0, 700, 3], dtype=torch.int32),
+           "rho_ranges": torch.tensor([650, 1, 700], dtype=torch.int32)}.get(
+        case, torch.tensor([700, 513, 2], dtype=torch.int32))
+    want = _vote_on_cpu(xy, w, trig, n_rho, cnt)
+    dev = [t.to(card) for t in (xy, w, trig)]
+    forced = {"split_equals_single_pass": [
+                  dict(splits=1), dict(splits=1, bt=16), dict(splits=2),
+                  dict(splits=5), dict(splits=64)],
+              "rho_ranges": [dict(rho_ranges=r, bt=bt) for r in (1, 2, 7)
+                             for bt in (1, 3, 8)],
+              "counts_0_and_p": [dict(), dict(splits=3), dict(bt=4),
+                                 dict(splits=1, bt=2)]}[case]
+    for kw in forced:
+        plan = vote_mod.launch_plan(3, 700, 45, n_rho, **kw)
+        got = vote_mod.launch(*dev[:3], n_rho, cnt.to(card), plan).cpu()
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+def test_vote_kernel_past_one_theta_of_shared_memory(card, rng):
+    """An n_rho whose tile does not fit shared memory at one theta: the
+    plan cuts rho into ranges, and the kernel gives the plain version's
+    bits."""
+    n_rho, T = 60000, 12
+    plan = vote_mod.launch_plan(2, 900, T, n_rho)
+    assert (plan["bt"], plan["rho_ranges"]) == (1, 2)
+    xy = rng.uniform(0, 30000, (2, 900, 3)).astype(np.float32)
+    xy[..., 2] = 1.0
+    w = (rng.uniform(size=(2, 900)) > 0.5).astype(np.float32)
+    trig = rng.uniform(-1, 1, (3, T)).astype(np.float32)
+    trig[2] = 30000.0
+    xy, w, trig = _t(xy), _t(w), _t(trig)
+    got = vote_mod.hough_vote(xy.to(card), w.to(card), trig.to(card),
+                              n_rho=n_rho).cpu()
+    want = ref.hough_vote(xy, w, trig, n_rho=n_rho)
+    assert want.sum() > 0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("weights", ["normal", "late_fraction"])
+def test_vote_kernel_real_weights_on_card(card, rng, splits, weights):
+    """Any f32 weight (negative, fractional, large; or +-1 for two staged
+    rounds and then a fraction, which turns a counting tile into f32): the
+    sums run in another order than the plain version's, so each bin is
+    held to the bound of two recursive sums of its k addends in any order,
+    2 (k - 1) 2^-24 sum|w|, plus one ulp of that sum."""
+    xy, w, trig = _vote_inputs(rng, 1500, 90, 120, edge_frac=0.7, batch=2)
+    if weights == "normal":
+        w = w * rng.normal(scale=50.0, size=w.shape).astype(np.float32)
+    else:
+        w = w * rng.choice([-1.0, 1.0], size=w.shape).astype(np.float32)
+        w[:, 1100:1110] = 0.25
+    xy, w, trig = _t(xy), _t(w), _t(trig)
+    plan = vote_mod.launch_plan(2, 1500, 90, 120, splits=splits)
+    got = vote_mod.launch(xy.to(card), w.to(card), trig.to(card), 120, None,
+                          plan).cpu().double()
+    want = ref.hough_vote(xy, w, trig, n_rho=120).double()
+    k = ref.hough_vote(xy, (w != 0).float(), trig, n_rho=120).double()
+    mass = ref.hough_vote(xy, w.abs(), trig, n_rho=120).double()
+    tol = (2.0 * (k - 1).clamp(min=0) * 2.0 ** -24 + 2.0 ** -23) * mass
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_vote_plan_matches_the_source_on_card(card):
+    """The wrapper's launch plan is the C entry's (blocks, threads, shared
+    bytes, R, theta blocks, gather blocks), at the main paths' shapes and
+    ragged ones; the C entry refuses a plan its kernel does not take."""
+    lib = vote_mod._lib()
+    for N, P, T, n_rho in ((8, 57600, 180, 2938), (1, 57600, 180, 2938),
+                           (1, 57600, 40, 2938), (4, 76800, 180, 801),
+                           (8, 921600, 180, 2938),
+                           (3, 700, 45, 150), (2, 900, 12, 60000),
+                           (1, 1, 1, 1), (5, 10, 181, 70001)):
+        for kw in ({}, {"splits": 3}, {"bt": 1}, {"bt": 32, "rho_ranges": 9},
+                   {"bt": 16}):
+            plan = vote_mod.launch_plan(N, P, T, n_rho, **kw)
+            out = (ctypes.c_longlong * 6)()
+            rc = lib.hough_vote_plan(N, P, T, n_rho, plan["bt"],
+                                     plan["splits"], plan["rho_ranges"], out)
+            fits = (plan["smem_bytes"] <= vote_mod.MAX_SMEM
+                    and plan["rho_ranges"] <= n_rho)
+            assert (rc == 0) == fits, (N, T, n_rho, kw)
+            if fits:
+                assert list(out) == [plan["blocks"], plan["threads"],
+                                     plan["smem_bytes"], plan["R"],
+                                     plan["theta_blocks"],
+                                     plan["gather_blocks"]]
+    out = (ctypes.c_longlong * 6)()
+    assert lib.hough_vote_plan(1, 9, 8, 100, 33, 1, 1, out) != 0
+    assert lib.hough_vote_plan(1, 9, 8, 100, 8, 0, 1, out) != 0
+    assert lib.hough_vote_plan(1, 9, 8, 100, 8, 1, 101, out) != 0
 
 
 @pytest.mark.cuda
