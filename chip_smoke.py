@@ -55,6 +55,17 @@ bit, ``conv_shape_times``; the vote at each main-path shape, bit for bit,
 turns with the parent's fused kernel swapped in (parent, this, this,
 parent, three times), and its profiled window runs once on it.
 
+The detector's serving path (``service_phases``): ``DetectionService``
+at 240x320 / 480x640 / 720x1280, batch 4, staged and with
+``fused_corridors=8``, on two interleaved 32-frame drive-cycle sessions
+and 16 one-off frames under the paper's 300 ms deadline: latency per
+bucket, misses, frames/s on the real clock (warm dispatches under
+``set_sync_debug_mode("error")``), every DONE answer against
+``DetectionPlan.run`` on the same batch, device time and GPU activities
+of a dispatch, the same traffic on a virtual clock equal on the card and
+on the CPU, and a fault pass (stager death, failed and stalled dispatch,
+NaN frames) that must end every request.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -115,16 +126,16 @@ def tracker_corridors(truth, n: int, half: float = 25.0):
     return np.asarray(rows, np.float32)
 
 
-def one_launch_ms(run) -> float:
+def one_launch_ms(run, spin: int = 10_000_000) -> float:
     """Device time of one call of ``run``: CUDA events around it, queued
-    behind a kernel that sleeps ~5 ms so that the host's launch time (up
-    to that) is hidden."""
+    behind a kernel that sleeps ``spin`` cycles (~5 ms by default) so that
+    the host's launch time (up to that) is hidden."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     run()
     end.record()
@@ -132,11 +143,11 @@ def one_launch_ms(run) -> float:
     return start.elapsed_time(end)
 
 
-def device_ms(run, n: int = 10) -> float:
+def device_ms(run, n: int = 10, spin: int = 10_000_000) -> float:
     """Device time of one call of ``run``, the least of ``n``
     (``one_launch_ms``) after one call to warm up."""
     run()
-    return min(one_launch_ms(run) for _ in range(n))
+    return min(one_launch_ms(run, spin) for _ in range(n))
 
 
 PRIMER_SPINS = 64
@@ -1446,6 +1457,355 @@ def matmul_phases(cuda_ms, params) -> dict:
                          for r in times]}
 
 
+SERVICE_BUCKETS = ((240, 320), (480, 640), (720, 1280))
+SERVICE_TICK_S = 1.0 / 30.0   # the camera's frame period (virtual clock)
+
+
+def service_phases() -> dict:
+    """The detector's serving path on the card: ``DetectionService``
+    (``serve/detection.py``) with buckets 240x320, 480x640 and 720x1280
+    (``DEPLOY_HW``), 4 slots a bucket, ``max_edges="auto"`` compaction,
+    the default steering and camera, a 40-bin union theta gate; once
+    staged and once with ``fused_corridors=8``.  The traffic: two
+    sessions, each the 32-frame "converging" drive cycle at 720x1280,
+    interleaved frame by frame, and 16 one-off frames (the 8 families at
+    240x320 and at 480x640), each request with the paper's 300 ms
+    deadline; the service steps once a camera tick.
+
+    For each configuration:
+
+      * on the real clock, after a warm-up (one request a bucket, then a
+        10-frame session that engages the gated and fused plans), the
+        traffic offered as fast as the service steps, the launch counts
+        zeroed just before it and read just after: latency p50 / p99 a
+        bucket, misses at 300 ms, frames/s.  Every dispatch of the
+        traffic is warm, so the service ran it under
+        ``set_sync_debug_mode("error")``; a hidden host sync raises;
+      * every batch the service dispatched is run again through its
+        ``DetectionPlan`` on the card: each DONE request's peaks, validity
+        and edges equal bit for bit;
+      * the device time of one warm dispatch for each bucket and path
+        (CUDA events), and the traffic again under the profiler
+        (``gpu_trace``): GPU activities a dispatch, device-busy share;
+      * the traffic on a ``VirtualClock`` (a tick a step, each batch
+        drained before the next tick) on the card and with
+        ``device="cpu"``: the same statuses, dispatch log, counters,
+        session tracks, steering commands and results.
+
+    Then a fault pass on the card (virtual clock, prefetch on, RGB
+    frames): a prefetch worker killed mid-stream, a failed dispatch, a
+    stalled dispatch and two NaN frames; every request must end in a
+    terminal status within a timeout.  Any failure raises.  Returns each
+    configuration's launch counts for the ``kernels`` line."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_lines import DEPLOY_HW, REALTIME_BUDGET_S
+    from repro_torch.core import ControlConfig, HoughConfig, PipelineConfig
+    from repro_torch.data import make_drive_cycle, scenario_batch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServiceFaultInjector
+    from repro_torch.serve import (
+        DetectionRequest, DetectionService, RequestStatus, VirtualClock,
+    )
+
+    H, W = DEPLOY_HW
+    assert SERVICE_BUCKETS[-1] == DEPLOY_HW
+    cfg = PipelineConfig(hough=HoughConfig(compact=True, max_edges="auto"))
+    cycle = make_drive_cycle("converging", 32, H, W, seed=0).images()
+    small = [scenario_batch(MAIN_FAMILIES, h, w, seed=2 + j)[0]
+             for j, (h, w) in enumerate(SERVICE_BUCKETS[:2])]
+    one_offs = [small[t % 2][t // 2] for t in range(16)]
+
+    class Recorded(DetectionService):
+        """The service, keeping every batch it retires (what ran, on the
+        device, and for which requests)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.retired = []
+
+        def _complete(self, grid, *, update_est=True):
+            if grid.in_flight is not None:
+                self.retired.append(grid.in_flight)
+            super()._complete(grid, update_est=update_est)
+
+    def make(fused, clock, device=None, **kw):
+        return Recorded(cfg, buckets=SERVICE_BUCKETS, batch_size=4,
+                        clock=clock, gate_band=40,
+                        fused_corridors=8 if fused else None,
+                        steering=ControlConfig(), device=device, **kw)
+
+    def traffic(svc, clock, sessions=("cam0", "cam1"), uid0=0):
+        reqs = []
+        for t in range(32):
+            arrivals = [(cycle[t], sid) for sid in sessions]
+            if t < len(one_offs):
+                arrivals.append((one_offs[t], None))
+            for frame, sid in arrivals:
+                r = DetectionRequest(uid=uid0 + len(reqs), frame=frame,
+                                     deadline_s=REALTIME_BUDGET_S,
+                                     session_id=sid)
+                svc.submit(r)
+                reqs.append(r)
+            svc.step()
+            if isinstance(clock, VirtualClock):
+                clock.advance(SERVICE_TICK_S)
+                svc.drain()
+        svc.run()
+        return reqs
+
+    counter_names = (
+        "dispatches", "completed", "rejected_queue_full", "shed_deadline",
+        "completed_late", "downshifted", "pre_downshifted",
+        "served_downshift", "served_coast", "gated_dispatches",
+        "fused_dispatches", "evicted", "rejected_invalid",
+        "dispatch_faults", "stager_deaths")
+
+    def counters(svc):
+        return {k: getattr(svc, k) for k in counter_names}
+
+    def path_of(rec):
+        c = rec.plan.cfg
+        return ("fused" if c.fused else
+                "gated" if c.hough.theta_band is not None else "full")
+
+    def against_plan(records):
+        """Each DONE request of each retired batch against the batch run
+        again through its plan on the card: (checked, differing uids)."""
+        checked, bad = 0, []
+        for rec in records:
+            again = rec.plan.run(rec.images, rec.theta_bins, rec.corridors)
+            for i, req in enumerate(rec.reqs):
+                if req is None or req.status is not RequestStatus.DONE:
+                    continue
+                h, w = req.frame.shape[:2]
+                checked += 1
+                if not (torch.equal(req.result.peaks, again.peaks[i])
+                        and torch.equal(req.result.valid, again.valid[i])
+                        and torch.equal(req.result.edges,
+                                        again.edges[i][:h, :w])):
+                    bad.append(req.uid)
+        return checked, bad
+
+    def latency_by_bucket(svc, reqs):
+        out = {}
+        for shape in SERVICE_BUCKETS:
+            lat = [r.latency_s * 1e3 for r in reqs if r.served
+                   and svc.bucket_for(r.frame) == shape]
+            out[f"{shape[0]}x{shape[1]}"] = {
+                "served": len(lat),
+                "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+                "p99_ms": float(np.percentile(lat, 99)) if lat else None}
+        return out
+
+    def statuses(reqs):
+        out = {}
+        for r in reqs:
+            out[r.status.name] = out.get(r.status.name, 0) + 1
+        return out
+
+    # the hot-loop guard is live: a host sync inside it raises
+    from repro_torch.serve import detection as det_mod
+
+    try:
+        with det_mod._no_host_sync(torch.device("cuda", 0)):
+            torch.ones(1, device="cuda").item()
+        guard_raises = False
+    except RuntimeError:
+        guard_raises = True
+    failures = [] if guard_raises else ["sync_guard"]
+    launches = {}
+    for name, fused in (("staged", False), ("fused", True)):
+        # --- the real clock: warm up, then the timed traffic
+        svc = make(fused, time.perf_counter)
+        for frame in (one_offs[0], one_offs[1], cycle[0]):
+            svc.submit(DetectionRequest(uid=-1, frame=frame))
+            svc.run()
+        for t in range(10):
+            svc.submit(DetectionRequest(uid=-1, frame=cycle[t],
+                                        session_id="warm"))
+            svc.run()
+        svc.end_session("warm")
+        warmed = set(svc._warmed)
+        before = counters(svc)
+        n_log, n_retired = len(svc.dispatch_log), len(svc.retired)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = traffic(svc, time.perf_counter)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log = [[f"{s[0]}x{s[1]}", n] for s, n, _ in
+               list(svc.dispatch_log)[n_log:]]
+        launches[name] = counts
+        after = counters(svc)
+        delta = {k: after[k] - before[k] for k in counter_names}
+        records = svc.retired[n_retired:]
+        all_warm = svc._warmed == warmed
+        d, f = delta["dispatches"], delta["fused_dispatches"]
+        want_counts = {k: 0 for k in counts}
+        want_counts.update(conv2d_gemm=2 * (d - f), hough_vote=d,
+                           fused_detect=f)
+        served = sum(r.served for r in reqs)
+        terminal = all(r.is_terminal for r in reqs)
+        checked, differ = against_plan(records)
+        # device time of one warm dispatch per bucket and path
+        dispatch_ms = {}
+        for rec in records:
+            key = f"{rec.plan.height}x{rec.plan.width}/{path_of(rec)}"
+            if key not in dispatch_ms:
+                # behind a ~30 ms spin: a staged dispatch makes hundreds
+                # of launches, whose host time the spin must hide
+                dispatch_ms[key] = device_ms(
+                    lambda rec=rec: rec.plan.run(rec.images, rec.theta_bins,
+                                                 rec.corridors),
+                    n=5, spin=60_000_000)
+        # the same traffic on fresh sessions under the profiler
+        d0 = svc.dispatches
+        tr = gpu_trace(lambda: traffic(svc, time.perf_counter,
+                                       sessions=("cam2", "cam3"),
+                                       uid0=1000),
+                       f"detection_service_{name}", 1)
+        traced_dispatches = svc.dispatches - d0
+        svc.close()
+        # --- the virtual clock: the card against the CPU
+        runs = {}
+        for where, device in (("card", None), ("cpu", "cpu")):
+            clock = VirtualClock()
+            vsvc = make(fused, clock, device)
+            t1 = time.perf_counter()
+            vreqs = traffic(vsvc, clock)
+            vsvc.close()
+            runs[where] = (vsvc, vreqs, time.perf_counter() - t1)
+        (csvc, creqs, card_s), (hsvc, hreqs, cpu_s) = runs["card"], runs["cpu"]
+        v_checked, v_differ = against_plan(csvc.retired)
+        req_differ = []
+        lines_err = 0.0
+        for a, b in zip(creqs, hreqs):
+            same = (a.status is b.status and a.bucket == b.bucket
+                    and a.finished_at == b.finished_at
+                    and (a.steering is None) == (b.steering is None)
+                    and (a.steering is None or tuple(a.steering)
+                         == tuple(b.steering))
+                    and [dataclasses.astuple(t) for t in a.tracks or ()]
+                    == [dataclasses.astuple(t) for t in b.tracks or ()])
+            if same and a.result is not None:
+                ra = [torch.as_tensor(x).cpu() for x in a.result[:4]]
+                rb = [torch.as_tensor(x).cpu() for x in b.result[:4]]
+                same = all(torch.equal(x, y) for x, y in zip(ra[1:], rb[1:]))
+                lines_err = max(lines_err,
+                                (ra[0] - rb[0]).abs().max().item())
+            if not same:
+                req_differ.append(a.uid)
+        virtual = {
+            "statuses": statuses(creqs),
+            "dispatch_log": [[f"{s[0]}x{s[1]}", n] for s, n, _ in
+                             csvc.dispatch_log],
+            "counters": counters(csvc),
+            "counters_equal_cpu": counters(csvc) == counters(hsvc),
+            "dispatch_log_equal_cpu": (list(csvc.dispatch_log)
+                                       == list(hsvc.dispatch_log)),
+            "requests_differing_from_cpu": req_differ,
+            "lines_max_abs_err_vs_cpu": lines_err,
+            "done_checked_against_plan_run": v_checked,
+            "done_differing_from_plan_run": v_differ,
+            "card_s": card_s, "cpu_s": cpu_s}
+        ok = (terminal and not differ and not v_differ and counts
+              == want_counts and min(counts["hough_vote"],
+                                     counts["conv2d_gemm"]) > 0
+              and (not fused or counts["fused_detect"] > 0)
+              and all(r.is_terminal for r in creqs + hreqs)
+              and virtual["counters_equal_cpu"]
+              and virtual["dispatch_log_equal_cpu"] and not req_differ
+              and lines_err < 1e-2)
+        emit({"phase": "detection_service", "config": name,
+              "buckets": [list(b) for b in SERVICE_BUCKETS], "batch": 4,
+              "gate_band": 40, "fused_corridors": 8 if fused else None,
+              "deadline_s": REALTIME_BUDGET_S,
+              "requests": len(reqs), "statuses": statuses(reqs),
+              "all_terminal": terminal, "counters": delta,
+              "dispatch_log": log,
+              "every_dispatch_warm_and_guarded": all_warm,
+              "sync_debug_mode_on_warm_dispatches": "error",
+              "guard_raises_on_a_host_sync": guard_raises,
+              "wall_s": wall_s, "frames_per_s": served / wall_s,
+              "misses_at_deadline": sum(r.missed_deadline for r in reqs),
+              "latency_ms_by_bucket": latency_by_bucket(svc, reqs),
+              "launches": counts, "launches_expected": want_counts,
+              "done_checked_against_plan_run": checked,
+              "done_differing_from_plan_run": differ,
+              "dispatch_device_ms": dispatch_ms,
+              "traced": {"dispatches": traced_dispatches,
+                         "gpu_activities": tr["gpu_activities"],
+                         "gpu_activities_per_dispatch":
+                             tr["gpu_activities"] / max(traced_dispatches, 1),
+                         "device_busy_ms": tr["device_busy_ms"],
+                         "device_span_ms": tr["device_span_ms"],
+                         "device_busy_share_of_span":
+                             tr["device_busy_share_of_span"],
+                         "traced_wall_ms": tr["traced_wall_ms"],
+                         "whole": tr["whole"], "top": tr["top"][:8],
+                         "trace": tr["trace"]},
+              "virtual_clock": virtual, "ok": ok})
+        if not ok:
+            failures.append(name)
+
+    # --- the fault pass: every request terminal, no wait without a bound
+    def fault_pass():
+        faults = ServiceFaultInjector(
+            kill_stager_at=(2,), fail_dispatch_at=(1,),
+            stall_dispatch_at=(3,), corrupt_frame_uids=(3, 7))
+        clock = VirtualClock()
+        svc = make(False, clock, faults=faults, prefetch=True)
+        reqs = []
+        for i in range(24):
+            rgb = np.repeat(one_offs[i % 16][..., None], 3, axis=2)
+            reqs.append(DetectionRequest(uid=i, frame=rgb, deadline_s=0.5))
+        for i, r in enumerate(reqs):
+            svc.submit(r)
+            if i % 4 == 3:
+                svc.step()
+                clock.advance(SERVICE_TICK_S)
+        svc.run()
+        svc.close()
+        return svc, reqs
+
+    box = {}
+
+    def guarded():
+        try:
+            box["out"] = fault_pass()
+        except BaseException as e:   # re-raised on the main thread
+            box["error"] = e
+
+    th = threading.Thread(target=guarded, daemon=True)
+    th.start()
+    th.join(timeout=300.0)
+    if th.is_alive():
+        raise SystemExit("detection service fault pass hung (300 s)")
+    if "error" in box:
+        raise box["error"]
+    fsvc, freqs = box["out"]
+    fc = counters(fsvc)
+    fault_ok = (all(r.is_terminal for r in freqs)
+                and fc["dispatch_faults"] == 1 and fc["stager_deaths"] >= 1
+                and fc["rejected_invalid"] == 2 and fc["completed_late"] >= 1
+                and all(r.served != r.status.refused for r in freqs))
+    emit({"phase": "detection_service_faults", "requests": len(freqs),
+          "statuses": statuses(freqs), "counters": fc,
+          "all_terminal": all(r.is_terminal for r in freqs), "ok": fault_ok})
+    if not fault_ok:
+        failures.append("faults")
+    if failures:
+        raise SystemExit(f"detection service checks failed: {failures}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2011,6 +2371,9 @@ def main(argv=None) -> int:
     if len(out) != 20 or not stream_eq:
         raise SystemExit("detect_stream disagrees with detect_batch")
 
+    # --- 5b. the detector's serving path: DetectionService ---------------
+    service_launches = service_phases()
+
     # --- 6. each main path went through its kernels -----------------------
     no_lm = {"flash_attention": 0, "ssd_scan": 0, "tiled_matmul": 0}
     staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1,
@@ -2531,6 +2894,12 @@ def main(argv=None) -> int:
                 **{k: tier_times[g][k] for k in keys}}
                for g in ("f16", "int8")},
         }})
+    # the serving path's launches, from its own runs (counts zeroed just
+    # before each configuration's traffic and read just after)
+    for k in kernels:
+        for name, counts in service_launches.items():
+            k["by_path"][f"detection_service_{name}"] = {
+                "launches": counts[k["name"]]}
     kernels += lm_phases(cuda_ms, args.parent)
     emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "
           "taken, whole, taken again; tries that lost primer spins, the "
@@ -2560,6 +2929,7 @@ def main(argv=None) -> int:
                t["losses"][0]["launches_without_device_record"]]
               for t in TRACES],
           "not_whole": [t["name"] for t in TRACES if not t["whole"]]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - STARTED})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,9 @@
 """The paper's line detector in PyTorch: Canny (conv kernel) -> Hough vote
 (vote kernel) -> get-lines-coordinates, with the paper's float->int rewrite
 and phase profiling; the fused hot path (fused_detect kernel -> vote
-kernel); and the temporal layer, lane tracking with prediction-gated and
-corridor-filtered detection."""
+kernel); the temporal layer, lane tracking with prediction-gated and
+corridor-filtered detection; and the consumer it serves, bird's-eye
+geometry and a pure-pursuit lateral controller."""
 
 from .canny import (  # noqa: F401
     GAUSS_5x5, SOBEL_X, SOBEL_Y, CannyConfig, canny, estimate_edge_count,
@@ -21,6 +22,13 @@ from .plan import (  # noqa: F401
 )
 from .metrics import (  # noqa: F401
     DetectionScore, aggregate_scores, match_peaks, score_batch, score_frame,
+)
+from .geometry import (  # noqa: F401
+    DEFAULT_CAMERA, CameraConfig, CameraGeometry, canonical_rho_theta,
+)
+from .control import (  # noqa: F401
+    ControlConfig, LateralController, SteeringCommand, Waypoints,
+    extract_waypoints, ground_boundaries,
 )
 from .pipeline import DetectionResult, LineDetector, PipelineConfig  # noqa: F401
 from .profiling import PhaseProfiler, StageCost, line_detection_costs  # noqa: F401
