@@ -66,6 +66,19 @@ of a dispatch, the same traffic on a virtual clock equal on the card and
 on the CPU, and a fault pass (stager death, failed and stalled dispatch,
 NaN frames) that must end every request.
 
+The closed loop (``closed_loop_phases``): the drive suite's arms at
+240x320, 48 frames of "straight", "rain", "night" and "glare" (blind,
+per_frame, tracked, tracked_fused; on "straight" the ``DetectionService``
+session with the degradation ladder on and off under forced overload),
+each card trajectory against the port's CPU run of the same arm, the
+suite's gates and ``benchmarks/baselines/drive_baseline.json``; each
+tracked frame's host-clock ms against the paper's 300 ms, launches and
+GPU activities a frame.  The paper's platform matrix
+(``paper_platform_phases``): stage times of rocket (stencil Canny and the
+serial ``hough_paper_loop``), gemm, gemm+hough, +fused and +int on one
+240x320 frame, speedups against rocket, the serial loop's votes against
+the vote kernel's and its CPU run.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1806,6 +1819,472 @@ def service_phases() -> dict:
     return launches
 
 
+# The drive suite's constants (benchmarks/drive_suite.py): the closed
+# loop's cycle length (pinned, never cut), the service arm's deadline,
+# model cost a dispatch and forced overload windows, the tracked arm's
+# max cross-track floors.
+DRIVE_FAMILIES = ("straight", "rain", "night", "glare")
+DRIVE_FRAMES = 48
+DRIVE_DEADLINE_S = 0.08
+DRIVE_MODEL_COST_S = 0.02
+DRIVE_OVERLOAD_EST_S = 1.0
+DRIVE_OVERLOAD_WINDOWS = (range(8, 14), range(28, 34))
+DRIVE_FLOOR_M = 0.40
+
+
+def drive_arm(arm: str, family: str, device=None) -> dict:
+    """One arm of the drive suite on ``standard_closed_loop(family, 48)``
+    at 240x320, seed 0, on the card (``device=None``) or the CPU: the
+    trajectory, each frame's command, the peaks and validity each
+    controller steered from, and the host-clock ms of each frame through
+    the vehicle's stack (detect, track, steer; not the world's render).
+    ``arm``: "blind", "per_frame", "tracked", "tracked_fused",
+    "service_ladder_on" or "service_ladder_off"."""
+    import numpy as np
+
+    from repro_torch.configs.paper_lines import FRAME_HW
+    from repro_torch.core import (
+        ControlConfig, HoughConfig, LateralController, LineDetector,
+        PipelineConfig, TrackingPipeline,
+    )
+    from repro_torch.data import standard_closed_loop
+    from repro_torch.serve import (
+        DetectionRequest, DetectionService, VirtualClock,
+    )
+
+    H, W = FRAME_HW
+    cfg = PipelineConfig(hough=HoughConfig(compact=True, max_edges="auto"))
+    cyc = standard_closed_loop(family, DRIVE_FRAMES, H, W, seed=0)
+    ctl = LateralController(clock=lambda: float(cyc.t))
+    out = {"commands": [], "seen": [], "frame_ms": [], "statuses": []}
+    if arm == "blind":
+        for _ in range(DRIVE_FRAMES):
+            cyc.observe()
+            cyc.advance(None)
+    elif arm == "per_frame":
+        det = LineDetector(cfg, device=device)
+        for _ in range(DRIVE_FRAMES):
+            img = np.asarray(cyc.observe().scene.image, np.float32)
+            t0 = time.perf_counter()
+            res = det.detect(img)
+            seen = (res.peaks.cpu().numpy(), res.valid.cpu().numpy())
+            cmd = ctl.command(*seen)
+            out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["seen"].append(seen)
+            out["commands"].append(tuple(cmd))
+            cyc.advance(cmd.curvature)
+    elif arm in ("tracked", "tracked_fused"):
+        kw = (dict(theta_band=40, fused_corridors=8)
+              if arm == "tracked_fused" else {})
+        tp = TrackingPipeline(cfg, height=H, width=W, device=device, **kw)
+        for _ in range(DRIVE_FRAMES):
+            img = cyc.observe().scene.image
+            t0 = time.perf_counter()
+            tf = tp.process(img, controller=ctl)
+            out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["seen"].append(tf.control_peaks)
+            out["commands"].append(tuple(tf.steering))
+            cyc.advance(tf.steering.curvature)
+        out["frames_split"] = {"full": tp.full_frames,
+                               "gated": tp.gated_frames,
+                               "fused": tp.fused_frames}
+    else:
+        clock = VirtualClock()
+        svc = DetectionService(
+            cfg, buckets=((H, W),), batch_size=1, prefetch=False,
+            ladder=arm == "service_ladder_on", steering=ControlConfig(),
+            clock=clock, device=device)
+        grid = svc.grids[(H, W)]
+        try:
+            for t in range(DRIVE_FRAMES):
+                clock.advance(cyc.cfg.frame_dt_s)
+                overload = any(t in w for w in DRIVE_OVERLOAD_WINDOWS)
+                grid.est_s = (DRIVE_OVERLOAD_EST_S if overload
+                              else DRIVE_MODEL_COST_S)
+                grid.est_measured = True
+                req = DetectionRequest(uid=t, frame=cyc.observe().scene.image,
+                                       deadline_s=DRIVE_DEADLINE_S,
+                                       session_id="ego")
+                t0 = time.perf_counter()
+                svc.submit(req)
+                svc.step()
+                if grid.in_flight is not None:
+                    clock.advance(DRIVE_MODEL_COST_S)
+                    svc.drain()
+                for _ in range(4):
+                    if req.is_terminal:
+                        break
+                    svc.step()
+                    svc.drain()
+                out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+                if not req.is_terminal:
+                    raise SystemExit(f"closed loop {arm} {family}: frame {t} "
+                                     f"not terminal ({req.status})")
+                out["statuses"].append(req.status.name)
+                cmd = req.steering
+                out["commands"].append(None if cmd is None else tuple(cmd))
+                cyc.advance(None if cmd is None else cmd.curvature)
+            out["dispatches"] = svc.dispatches
+        finally:
+            svc.close()
+    out.update(trajectory=list(cyc.trajectory),
+               max_cross_track_m=cyc.max_cross_track_m,
+               mean_cross_track_m=cyc.mean_cross_track_m,
+               final_cross_track_m=abs(cyc.trajectory[-1][1]))
+    if not arm.startswith("service"):   # the service steers on its own
+        out.update(fresh_commands=ctl.fresh_commands,
+                   held_commands=ctl.held_commands)
+    return out
+
+
+def first_difference(card: dict, cpu: dict) -> dict | None:
+    """Where a card run of an arm first leaves the CPU run: the first
+    frame whose plant state differs, the first frame whose steered-from
+    peaks differ and the first such peak, the first command."""
+    import numpy as np
+
+    def first(xs, ys):
+        return next((i for i, (x, y) in enumerate(zip(xs, ys)) if x != y),
+                    None)
+
+    peak = None
+    for t, ((pa, va), (pb, vb)) in enumerate(zip(card["seen"], cpu["seen"])):
+        if pa.shape != pb.shape or not (np.array_equal(pa, pb)
+                                        and np.array_equal(va, vb)):
+            k = next((k for k in range(min(len(pa), len(pb)))
+                      if not (np.array_equal(pa[k], pb[k])
+                              and va[k] == vb[k])), None)
+            peak = {"frame": t, "peak": k,
+                    "card": None if k is None else [*pa[k].tolist(),
+                                                    bool(va[k])],
+                    "cpu": None if k is None else [*pb[k].tolist(),
+                                                   bool(vb[k])]}
+            break
+    diff = {"trajectory_frame": first(card["trajectory"], cpu["trajectory"]),
+            "command_frame": first(card["commands"], cpu["commands"]),
+            "status_frame": first(card["statuses"], cpu["statuses"]),
+            "first_peak": peak}
+    return None if all(v is None for v in diff.values()) else diff
+
+
+def closed_loop_phases() -> dict:
+    """The closed loop on the card, the drive suite's arms
+    (``benchmarks/drive_suite.py``) at 240x320 (``FRAME_HW``), 48 frames,
+    seed 0, on "straight", "rain", "night" and "glare": blind,
+    per_frame (``LineDetector`` -> ``LateralController``), tracked
+    (``TrackingPipeline.process(frame, controller=)``), tracked_fused
+    (``theta_band=40, fused_corridors=8``), and on "straight" the
+    ``DetectionService`` session arm with the degradation ladder on and
+    off under two forced overload windows.
+
+    Each arm on the card is run with the launch counts zeroed just before
+    it and read just after, and again with ``device="cpu"``: the card's
+    trajectory, commands and statuses must equal the CPU's (the first
+    frame and peak that differ are printed).  Then the suite's gates
+    (tracked max <= 0.40 m; tracked mean <= per_frame mean on the noisy
+    families; ladder on < off on max and mean; tracked max < half the
+    blind max; a second tracked run the same) and the committed baseline
+    (``benchmarks/baselines/drive_baseline.json``: the tracked and
+    ladder-on max and mean, tolerance 0, as ``scripts/check_drive.py``).
+    Printed beside them: each tracked frame's host-clock ms against the
+    paper's 300 ms, launches a frame, GPU activities a frame
+    (``gpu_trace``).  Any failure raises.  Returns each arm's launch
+    counts for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_lines import FRAME_HW, REALTIME_BUDGET_S
+    from repro_torch.data import NOISY_FAMILIES
+    from repro_torch.kernels import ops
+
+    arms = ("blind", "per_frame", "tracked", "tracked_fused")
+    runs = [(arm, fam) for fam in DRIVE_FAMILIES for arm in arms]
+    runs += [("service_ladder_on", "straight"),
+             ("service_ladder_off", "straight")]
+    # one short tracked run first: the plans' first launches and the
+    # kernels' first loads stay out of the timed frames
+    drive_arm("tracked_fused", "straight")
+    card, cpu, launches, failures = {}, {}, {}, []
+    for arm, fam in runs:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        card[arm, fam] = drive_arm(arm, fam)
+        torch.cuda.synchronize()
+        launches[arm, fam] = ops.launch_counts()
+        cpu[arm, fam] = drive_arm(arm, fam, device="cpu")
+    rows = []
+    for arm, fam in runs:
+        a, b, n = card[arm, fam], cpu[arm, fam], launches[arm, fam]
+        diff = first_difference(a, b)
+        split = a.get("frames_split", {})
+        steps = (a.get("dispatches", 0) if arm.startswith("service")
+                 else 0 if arm == "blind" else DRIVE_FRAMES)
+        fused = split.get("fused", 0)
+        want = {k: 0 for k in n}
+        want.update(conv2d_gemm=2 * (steps - fused), hough_vote=steps,
+                    fused_detect=fused)
+        ms = a["frame_ms"]
+        row = {"arm": arm, "family": fam,
+               "max_cross_track_m": a["max_cross_track_m"],
+               "mean_cross_track_m": a["mean_cross_track_m"],
+               "final_cross_track_m": a["final_cross_track_m"],
+               "fresh_commands": a.get("fresh_commands"),
+               "held_commands": a.get("held_commands"),
+               "equal_cpu": diff is None, "first_difference_vs_cpu": diff,
+               "launches": n, "launches_expected": want,
+               "launches_per_frame": {k: v / DRIVE_FRAMES
+                                      for k, v in n.items() if v},
+               "frame_ms_p50": float(np.percentile(ms, 50)) if ms else None,
+               "frame_ms_p99": float(np.percentile(ms, 99)) if ms else None}
+        if split:
+            row["frames_split"] = split
+        if a["statuses"]:
+            row["statuses"] = {s: a["statuses"].count(s)
+                               for s in sorted(set(a["statuses"]))}
+            row["dispatches"] = a["dispatches"]
+        rows.append(row)
+        if diff is not None or n != want:
+            failures.append(f"{arm}/{fam}")
+    by = {(r["arm"], r["family"]): r for r in rows}
+
+    def m(arm, fam, key="max_cross_track_m"):
+        return by[arm, fam][key]
+
+    rerun = drive_arm("tracked", DRIVE_FAMILIES[0])
+    on, off = "service_ladder_on", "service_ladder_off"
+    gates = {
+        "tracked_under_floor": all(m("tracked", f) <= DRIVE_FLOOR_M
+                                   for f in DRIVE_FAMILIES),
+        "tracked_le_per_frame_on_noisy": all(
+            m("tracked", f, "mean_cross_track_m")
+            <= m("per_frame", f, "mean_cross_track_m")
+            for f in DRIVE_FAMILIES if f in NOISY_FAMILIES),
+        "ladder_on_beats_off": (
+            m(on, "straight") < m(off, "straight")
+            and m(on, "straight", "mean_cross_track_m")
+            < m(off, "straight", "mean_cross_track_m")),
+        "controlled_beats_blind": all(
+            m("tracked", f) < 0.5 * m("blind", f) for f in DRIVE_FAMILIES),
+        "deterministic_replay": (rerun["trajectory"]
+                                 == card["tracked", DRIVE_FAMILIES[0]][
+                                     "trajectory"]),
+    }
+    base = json.loads((ROOT / "benchmarks" / "baselines"
+                       / "drive_baseline.json").read_text())
+    pinned = {f"tracked/{f}": (by["tracked", f], b)
+              for f, b in base["tracked"].items()}
+    pinned["service_ladder_on/straight"] = (by[on, "straight"],
+                                            base["service_ladder_on"])
+    vs_baseline = {
+        k: {key: {"port": r[key], "baseline": b[key],
+                  "port_minus_baseline": r[key] - b[key]}
+            for key in ("max_cross_track_m", "mean_cross_track_m")}
+        for k, (r, b) in pinned.items()}
+    baseline_ok = all(v["port_minus_baseline"] <= 0.0
+                      for d in vs_baseline.values() for v in d.values())
+    # the tracked arms' frames through the vehicle's stack on the card
+    frame_ms = {a: [t for f in DRIVE_FAMILIES for t in card[a, f]["frame_ms"]]
+                for a in ("per_frame", "tracked", "tracked_fused")}
+    times = {a: {"frames": len(v), "p50_ms": float(np.percentile(v, 50)),
+                 "p99_ms": float(np.percentile(v, 99)), "max_ms": max(v),
+                 "over_budget": sum(t > REALTIME_BUDGET_S * 1e3 for t in v)}
+             for a, v in frame_ms.items()}
+    traced = {}
+    for arm in ("per_frame", "tracked", "tracked_fused"):
+        t = gpu_trace(lambda arm=arm: drive_arm(arm, "rain"),
+                      f"closed_loop_{arm}", 1)
+        traced[arm] = {"gpu_activities_per_frame":
+                       t["gpu_activities"] / DRIVE_FRAMES,
+                       "device_busy_ms_per_frame":
+                       t["device_busy_ms"] / DRIVE_FRAMES,
+                       "device_busy_share_of_span":
+                       t["device_busy_share_of_span"],
+                       "traced_wall_ms_per_frame":
+                       t["traced_wall_ms"] / DRIVE_FRAMES,
+                       "whole": t["whole"], "top": t["top"][:6],
+                       "trace": t["trace"]}
+    ok = not failures and all(gates.values()) and baseline_ok
+    emit({"phase": "closed_loop", "hw": list(FRAME_HW),
+          "frames": DRIVE_FRAMES, "seed": 0,
+          "families": list(DRIVE_FAMILIES),
+          "hough": "compact=True, max_edges='auto'",
+          "service": {"deadline_s": DRIVE_DEADLINE_S,
+                      "model_cost_s": DRIVE_MODEL_COST_S,
+                      "overload_est_s": DRIVE_OVERLOAD_EST_S,
+                      "overload_frames": [t for w in DRIVE_OVERLOAD_WINDOWS
+                                          for t in w]},
+          "arms": rows, "gates": gates, "vs_baseline": vs_baseline,
+          "baseline_tolerance_m": 0.0, "at_or_below_baseline": baseline_ok,
+          "frame_ms_on_card": times,
+          "realtime_budget_ms": REALTIME_BUDGET_S * 1e3,
+          "traced_rain": traced, "arms_differing_from_cpu": failures,
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"closed loop failed: arms {failures}, gates "
+                         f"{gates}, at or below the baseline {baseline_ok}")
+    return {f"{arm}_{fam}": launches[arm, fam] for arm, fam in runs}
+
+
+# The paper's platform matrix (Table 7), as benchmarks/paper_tables.py
+# runs it: each configuration's Canny and Hough, then get_lines.
+PAPER_CONFIGS = (
+    ("rocket", {"impl": "stencil"}, False),
+    ("gemm", {}, False),
+    ("gemm+hough", {}, True),
+    ("+fused", {"fused": True}, True),
+    ("+int", {"integer": True}, True),
+)
+
+
+def paper_platform_phases(cuda_ms) -> dict:
+    """The paper's Table 6 / 7 analogue on the card at ``FRAME_HW``
+    (240x320), one frame of "straight" at seed 0: stage times (Canny,
+    Hough, get_lines) for "rocket" (the stencil Canny, plain torch, and
+    the serial ``hough_paper_loop``), "gemm" (the conv kernel's Canny and
+    the serial loop), "gemm+hough" (the conv kernel and the vote kernel,
+    ``hough_transform`` with ``HoughConfig()``), "+fused" (the (3,7,7)
+    masks) and "+int" (the integer rewrite); speedups against rocket.
+
+    A stage's time is the host clock around one call that ends in a
+    synchronize, as the paper times a stage on its core: the serial loop
+    once warm and then once timed (``paper_tables.py`` repeats it twice),
+    the other stages the median of 10 after a warm call, with their device
+    time (CUDA events, ``cuda_ms``) beside it.  Launch counts are zeroed
+    just before each configuration's pass and read just after.  Checks: on
+    the card the serial loop's votes equal the vote kernel's on the same
+    edges (atol 1e-3, as ``tests/test_core.py``) and the port's CPU loop
+    bit for bit; the stencil Canny's Gauss and Sobel stages equal the conv
+    kernel's within the float conv tolerance (1e-4), and the edge pixels
+    where the two Canny edge maps differ are counted.  Any failure raises.
+    Returns each configuration's launch counts for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_lines import FRAME_HW
+    from repro_torch.core import (
+        CannyConfig, HoughConfig, LinesConfig, canny, get_lines,
+        hough_paper_loop, hough_transform,
+    )
+    from repro_torch.core.canny import device_masks
+    from repro_torch.data import make_scenario
+    from repro_torch.kernels import ops, ref
+
+    H, W = FRAME_HW
+    dev = torch.device("cuda", 0)
+    img = torch.from_numpy(make_scenario("straight", H, W, seed=0)
+                           .image.astype(np.float32)).to(dev)
+    hcfg, lcfg = HoughConfig(), LinesConfig()
+
+    def host_ms(fn, reps, warm=True):
+        """Host-clock ms of ``fn`` to a synchronize: one warm call unless
+        ``warm`` is false, then the median of ``reps``; the last result."""
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts)), ts, out
+
+    rows, launches, loops = {}, {}, {}
+    for name, ckw, vote_kernel in PAPER_CONFIGS:
+        ccfg = CannyConfig(**ckw)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        edges = canny(img, ccfg)
+        votes = (hough_transform(edges, hcfg) if vote_kernel
+                 else hough_paper_loop(edges, hcfg))
+        get_lines(votes, height=H, width=W, cfg=lcfg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches[name] = ops.launch_counts()
+        canny_ms, _, edges = host_ms(lambda: canny(img, ccfg), 10)
+        if vote_kernel:
+            hough_ms, _, votes = host_ms(
+                lambda: hough_transform(edges, hcfg), 10)
+            hough_runs = None
+        else:
+            # the serial loop: the counted pass above warmed it
+            hough_ms, hough_runs, votes = host_ms(
+                lambda: hough_paper_loop(edges, hcfg), 1, warm=False)
+            loops[name] = (edges, votes)
+        lines_ms, _, _ = host_ms(
+            lambda: get_lines(votes, height=H, width=W, cfg=lcfg), 10)
+        rows[name] = {
+            "canny": ccfg.impl or ("fused_7x7" if ccfg.fused else
+                                   "integer" if ccfg.integer else "f32"),
+            "hough": "vote kernel" if vote_kernel else "hough_paper_loop",
+            "canny_ms": canny_ms, "hough_ms": hough_ms,
+            "get_lines_ms": lines_ms,
+            "total_ms": canny_ms + hough_ms + lines_ms,
+            "device_ms": {
+                "canny": cuda_ms(lambda: canny(img, ccfg), reps=10),
+                "get_lines": cuda_ms(lambda: get_lines(
+                    votes, height=H, width=W, cfg=lcfg), reps=10),
+                **({"hough": cuda_ms(lambda: hough_transform(edges, hcfg),
+                                     reps=10)} if vote_kernel else {})},
+            "launches": {k: v for k, v in launches[name].items() if v},
+            "edge_pixels": int((edges >= hcfg.edge_threshold).sum()),
+            "votes": float(votes.sum()),
+            # the counted first pass, each stage's first call included
+            "first_pass_ms": first_ms}
+        if hough_runs is not None:
+            rows[name]["hough_paper_loop_iterations"] = H * W
+    base = rows["rocket"]
+    for r in rows.values():
+        r["speedup_vs_rocket"] = {
+            s: base[f"{s}_ms"] / r[f"{s}_ms"]
+            for s in ("canny", "hough", "get_lines", "total")}
+    # the serial loop against the vote kernel and the CPU loop
+    checks = []
+    for name, (edges, votes) in loops.items():
+        vote = hough_transform(edges, hcfg)
+        on_cpu = hough_paper_loop(edges.cpu(), hcfg)
+        err = (votes - vote).abs().max().item()
+        checks.append({"config": name, "loop_vs_vote_kernel_max_abs_err": err,
+                       "loop_equal_cpu_loop": torch.equal(votes.cpu(),
+                                                          on_cpu),
+                       "ok": err <= 1e-3 and torch.equal(votes.cpu(),
+                                                         on_cpu)})
+    # the stencil Canny against the conv kernel's, stage by stage
+    stages = []
+    for which, masks in enumerate(device_masks(CannyConfig(), dev)):
+        x = img if which == 0 else ops.conv2d_gemm(img, device_masks(
+            CannyConfig(), dev)[0])[0]
+        got, want = ref.conv2d_stencil(x, masks), ops.conv2d_gemm(x, masks)
+        stages.append({"stage": ("gauss_1x5x5", "sobel_2x3x3")[which],
+                       "max_abs_err": (got - want).abs().max().item(),
+                       "ok": torch.allclose(got, want, rtol=1e-4,
+                                            atol=1e-4)})
+    e_st = canny(img, CannyConfig(impl="stencil"))
+    e_gm = canny(img, CannyConfig())
+    stencil = {"stages": stages,
+               "edge_pixels_differing": int((e_st != e_gm).sum()),
+               "edge_pixels": int((e_gm >= 250).sum())}
+    checks.append({"config": "rocket_canny_vs_conv_kernel", **stencil,
+                   "ok": all(s["ok"] for s in stages)})
+    kernel_use = all(
+        (launches[n]["conv2d_gemm"] > 0) == (ckw.get("impl") is None)
+        and (launches[n]["hough_vote"] > 0) == vote_kernel
+        and launches[n]["fused_detect"] == 0
+        for n, ckw, vote_kernel in PAPER_CONFIGS)
+    ok = all(c["ok"] for c in checks) and kernel_use
+    emit({"phase": "paper_platforms", "hw": [H, W],
+          "frame": "straight, seed 0", "hough": "HoughConfig()",
+          "note": "host-clock ms of one call to a synchronize; the serial "
+                  "loop timed once after a warm call",
+          "configs": rows, "checks": checks,
+          "launches_as_configured": kernel_use, "ok": ok})
+    if not ok:
+        raise SystemExit(f"paper platforms failed: {checks}, kernels "
+                         f"{launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2374,6 +2853,10 @@ def main(argv=None) -> int:
     # --- 5b. the detector's serving path: DetectionService ---------------
     service_launches = service_phases()
 
+    # --- 5c. the closed loop; the paper's platform matrix ----------------
+    loop_launches = closed_loop_phases()
+    paper_launches = paper_platform_phases(cuda_ms)
+
     # --- 6. each main path went through its kernels -----------------------
     no_lm = {"flash_attention": 0, "ssd_scan": 0, "tiled_matmul": 0}
     staged_call = {"conv2d_gemm": 2, "fused_detect": 0, "hough_vote": 1,
@@ -2899,6 +3382,14 @@ def main(argv=None) -> int:
     for k in kernels:
         for name, counts in service_launches.items():
             k["by_path"][f"detection_service_{name}"] = {
+                "launches": counts[k["name"]]}
+        # the closed loop's arms, 48 frames each, and the paper's
+        # platforms, one frame each, counted the same way
+        for name, counts in loop_launches.items():
+            k["by_path"][f"closed_loop_{name}"] = {
+                "launches": counts[k["name"]]}
+        for name, counts in paper_launches.items():
+            k["by_path"][f"paper_platform_{name}"] = {
                 "launches": counts[k["name"]]}
     kernels += lm_phases(cuda_ms, args.parent)
     emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "

@@ -11,8 +11,8 @@ from .canny import (  # noqa: F401
 )
 from .hough import (  # noqa: F401
     CORRIDOR_INF, HoughConfig, auto_max_edges, full_corridors, fused_hough,
-    fused_hough_tiered, hough_transform, hough_transform_tiered,
-    max_edge_tiers, resolve_max_edges, rho_bins,
+    fused_hough_tiered, hough_paper_loop, hough_transform,
+    hough_transform_tiered, max_edge_tiers, resolve_max_edges, rho_bins,
 )
 from .lines import (  # noqa: F401
     LinesConfig, get_lines, peak_segments, render_lines,

@@ -6,6 +6,10 @@ homogeneous ``(x, y, 1) @ trig`` product, then a weighted histogram: the
 vote kernel (``kernels/csrc/hough_vote.cu``) on the card, its plain version
 on the CPU.  ``HoughConfig(compact=True)`` compacts the edge pixels first.
 
+:func:`hough_paper_loop` is the paper's Algorithm 2, serial: a Python
+loop over the pixels with a vectorised theta sweep, the measured baseline
+of the platform comparison (``configs.paper_lines.PLATFORMS["rocket"]``).
+
 ``max_edges="auto"`` sizes the compaction buffer from the workload.  The
 reference's tiered dispatch (``lax.switch`` over a static set of buffer
 sizes, picked by the on-device edge count) has no sync-free counterpart in
@@ -291,3 +295,49 @@ def fused_hough_tiered(image: torch.Tensor, canny_cfg, cfg: HoughConfig,
     return fused_hough(image, canny_cfg,
                        dataclasses.replace(cfg, max_edges=int(tiers[-1])),
                        theta_bins, corridors, scatter=scatter)
+
+
+@functools.cache
+def _device_cos_sin(n_theta: int, device: torch.device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (n_theta,) f32 ``cos`` and ``sin`` of the theta bins, taken on
+    the host in numpy as :func:`hough_trig` takes them: torch's and XLA's
+    ``cos`` / ``sin`` differ from numpy's in the last ulp."""
+    theta = np.arange(n_theta, dtype=np.float32) * (math.pi / n_theta)
+    return (torch.from_numpy(np.cos(theta)).to(device),
+            torch.from_numpy(np.sin(theta)).to(device))
+
+
+def hough_paper_loop(edges: torch.Tensor, cfg: HoughConfig = HoughConfig()
+                     ) -> torch.Tensor:
+    """Paper Algorithm 2, serial: for each pixel, for each theta,
+    ``accumulators[rho_bin, theta] += (pixel >= edge_threshold)``.
+
+    One Python iteration a pixel, each a handful of element-wise torch ops
+    over the theta sweep on the device of ``edges``: the scalar core's
+    loop, the baseline the platform comparison measures, so no kernel
+    stands in for it.  The arithmetic is the reference's, each operation
+    rounded in f32: ``rho = j*cos + i*sin + diag``, then
+    ``floor(rho / rho_res)``, the division by a device tensor so that it
+    rounds once on the card too; the vote is the reference's scatter-add
+    (``acc.at[idx, arange(n_theta)].add(w)``), one ``scatter_add_`` into
+    row ``idx[t]`` of each column ``t``.  The reference's XLA build contracts
+    ``j*cos + i*sin`` into one fused multiply-add and takes XLA's ``cos`` /
+    ``sin``, so a rho within an ulp of a bin edge can land one bin over:
+    the votes' total is the same.  (H, W) -> (n_rho, n_theta) f32.
+    """
+    H, W = edges.shape
+    dev = edges.device
+    n_rho = rho_bins(H, W, cfg)
+    diag = math.hypot(H, W)
+    cos_t, sin_t = _device_cos_sin(cfg.n_theta, dev)
+    rho_res = torch.full((), cfg.rho_res, dtype=torch.float32, device=dev)
+    flat = edges.reshape(-1).to(torch.float32)
+    acc = torch.zeros((n_rho, cfg.n_theta), dtype=torch.float32, device=dev)
+    for p in range(H * W):
+        i, j = divmod(p, W)
+        rho = j * cos_t + i * sin_t + diag
+        idx = torch.floor(rho / rho_res).to(torch.int64)
+        w = torch.where(flat[p] >= cfg.edge_threshold, 1.0, 0.0)
+        acc.scatter_add_(0, idx[None], w.expand(1, cfg.n_theta))
+    return acc

@@ -511,8 +511,8 @@ class TrackedFrame(NamedTuple):
     result: DetectionResult     # raw detector output for the frame
     tracks: list[Track]         # reported (smoothed) tracks
     gated: bool                 # True iff the frame ran the gated sweep
-    steering: Optional[object] = None   # the controller's command, when
-                                        # one is attached
+    steering: Optional[object] = None   # SteeringCommand when a
+                                        # controller is attached
 
     @property
     def control_peaks(self) -> tuple[np.ndarray, np.ndarray]:
@@ -591,9 +591,12 @@ class TrackingPipeline:
         self.fused_frames = 0
 
     def process(self, frame, controller=None) -> TrackedFrame:
-        """Detect + track one frame.  ``controller`` is any object with a
-        ``command(peaks, valid)`` method; when given, the frame's steering
-        command comes from ``TrackedFrame.control_peaks``."""
+        """Detect + track one frame; with a ``controller``
+        (``core.control.LateralController``) attached, also emit the
+        frame's steering command from the smoothed tracks when any are
+        reported, the raw detections otherwise (what
+        ``TrackedFrame.control_peaks`` gives), read from the same host
+        copy of the peaks as the tracker's."""
         img = self._plans.put(load_frame(frame))
         bins = None
         if self.gated_plan is not None:
@@ -611,12 +614,13 @@ class TrackingPipeline:
             else:
                 res = self.gated_plan.run(img, bins)
             self.gated_frames += 1
-        # the tracker is host code: one copy of the peaks back per frame
-        tracks = self.tracker.step(res.peaks.cpu().numpy(),
-                                   res.valid.cpu().numpy())
+        # the tracker and the controller are host code: one copy of the
+        # peaks back per frame
+        peaks, valid = res.peaks.cpu().numpy(), res.valid.cpu().numpy()
+        tracks = self.tracker.step(peaks, valid)
         out = TrackedFrame(res, tracks, bins is not None)
         if controller is not None:
-            out = out._replace(
-                steering=controller.command(*out.control_peaks)
-            )
+            seen = (tracks_as_peaks(tracks) if tracks else
+                    (peaks.reshape(-1, 2), valid.reshape(-1)))
+            out = out._replace(steering=controller.command(*seen))
         return out

@@ -1,10 +1,12 @@
 """Synthetic road frames, the scenario families with analytic ground truth,
-and the drive cycles (numpy; the same frames as ``repro.data`` from the same
-seeds)."""
+the drive cycles and the closed loop (numpy; the same frames as
+``repro.data`` from the same seeds)."""
 
 from .images import RoadScene, frame_stream, synthetic_road  # noqa: F401
 from .scenarios import (  # noqa: F401
     NOISY_FAMILIES,
+    ClosedLoopConfig,
+    ClosedLoopCycle,
     DriveCycle,
     DriveCycleFrame,
     ScenarioFamily,
@@ -15,6 +17,7 @@ from .scenarios import (  # noqa: F401
     scenario_names,
     scenario_stream,
     segment_rho_theta,
+    standard_closed_loop,
     standard_drive_cycle,
     transform_rho_theta,
 )

@@ -28,9 +28,14 @@ Drive cycles (``make_drive_cycle``, ``standard_drive_cycle``) carry one
 base scene through rigid ego-motion, frame by frame, with the exact
 (rho, theta) truth of every frame: the tracker's workload.
 
-A numpy copy of ``repro/data/scenarios.py`` up to ``standard_drive_cycle``,
-so the port makes the same frames from the same seeds without importing the
-reference; the closed-loop cycle comes with the control module.
+The closed loop (``ClosedLoopConfig``, ``ClosedLoopCycle``,
+``standard_closed_loop``) renders each frame from a lateral plant's state
+and advances the plant on the steering command fed back: the drive
+harness's cycle, scored in cross-track meters.
+
+A numpy copy of ``repro/data/scenarios.py``, so the port makes the same
+frames and trajectories from the same seeds and commands without importing
+the reference.
 """
 
 from __future__ import annotations
@@ -614,5 +619,218 @@ def standard_drive_cycle(family: str, n_frames: int = 48,
         dropout_frames=tuple(range(third, third + 3)) if noisy else (),
         noise_burst_frames=(
             tuple(range(2 * third, 2 * third + 4)) if noisy else ()
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# closed loop: steering feeds the ego-motion that renders the next frame
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ClosedLoopConfig:
+    """Plant + world-model knobs for :class:`ClosedLoopCycle`.
+
+    The plant is the standard lateral kinematic model: state ``e``
+    (cross-track offset, meters, + = right of lane center) and ``psi``
+    (heading error, radians, + = yawed right), driven by the commanded
+    curvature ``kappa`` (+ = turn right)::
+
+        psi' = psi + v dt kappa
+        e'   = e + v dt sin(psi') + w(t) dt
+
+    ``w(t)`` is a deterministic lateral disturbance (constant drift +
+    sinusoidal gust — crosswind / road crown) that the controller must
+    keep fighting: an arm that stops steering drifts off center and the
+    trajectory gates see it.
+
+    The world model renders the plant state as the rigid image motion of
+    the existing drive-cycle machinery: ``dx = -px_per_m * e`` (drive
+    right of center -> the scene slides left), ``yaw_img = psi``, and a
+    scripted longitudinal surge ``dy`` (suspension bob; exercises the
+    ``dy`` leg end to end).  ``px_per_m`` is the near-row image scale of
+    ``geometry.DEFAULT_CAMERA`` (~125 px/m at the bottom of 240x320) so
+    the perceived and true states agree to first order.
+    """
+    px_per_m: float = 125.0
+    speed_mps: float = 4.0
+    frame_dt_s: float = 0.1
+    drift_mps: float = 0.15         # constant lateral disturbance
+    gust_mps: float = 0.2           # gust amplitude on top of the drift
+    gust_period: float = 9.0        # frames per gust cycle (above the
+                                    # loop's natural period: attenuated)
+    surge_px: float = 3.0           # scripted dy bob amplitude
+    surge_period: float = 23.0      # frames per bob cycle
+    max_curvature: float = 2.0      # actuator clamp, 1/m
+    max_heading_rad: float = 0.6    # plant clamp (keeps the warp sane)
+    hold_decay: float = 0.7         # actuator decay when no command lands
+
+
+class ClosedLoopCycle:
+    """A drive cycle whose ego-motion is *closed over the controller*.
+
+    Unlike :func:`make_drive_cycle` (scripted pose trajectory), each
+    frame here is rendered from the plant's CURRENT state, and the pose
+    advances only when the harness feeds back a steering command::
+
+        cyc = ClosedLoopCycle("straight", 48, seed=0)
+        for _ in range(48):
+            frame = cyc.observe()          # render + exact truth
+            cmd = pipeline_or_service(frame.scene.image)
+            cyc.advance(cmd.curvature)     # or advance(None) on refusal
+
+    so a dropout, a shed request, or a degraded answer costs *trajectory
+    error*, not just F1.  ``advance(None)`` models the actuator with no
+    fresh command: the last curvature decays by ``hold_decay`` each
+    frame (the vehicle eases straight while blind).
+
+    Truth is exact by construction: the absolute pose (accumulated yaw +
+    translation) is applied to the base scene's analytic lines in ONE
+    ``transform_rho_theta`` call per frame — no per-step composition
+    drift, which is why that function's canonicalization must survive
+    |yaw| >= pi.
+
+    Determinism: the disturbance is a closed-form drift+gust (no rng);
+    dropout/burst imagery reuses the drive-cycle's ``(seed, t)``-keyed
+    rngs — a cycle replays bit-identically for the same seed and the
+    same command sequence.
+    """
+
+    def __init__(self, family: str, n_frames: int, height: int = 240,
+                 width: int = 320, *, seed: int = 0,
+                 cfg: ClosedLoopConfig = ClosedLoopConfig(),
+                 e0_m: float = 0.25, psi0_rad: float = 0.0,
+                 dropout_frames: Sequence[int] = (),
+                 noise_burst_frames: Sequence[int] = (),
+                 burst_frac: float = 0.012):
+        self.family = family
+        self.n_frames = n_frames
+        self.height, self.width = height, width
+        self.seed = seed
+        self.cfg = cfg
+        self.base = make_scenario(family, height, width, seed=seed)
+        self._fill = float(np.median(self.base.image))
+        self._cy, self._cx = (height - 1) / 2.0, (width - 1) / 2.0
+        self._dropout = set(int(t) for t in dropout_frames)
+        self._burst = set(int(t) for t in noise_burst_frames)
+        self._burst_frac = burst_frac
+        # plant state
+        self.t = 0
+        self.e_m = float(e0_m)
+        self.psi_rad = float(psi0_rad)
+        self._held_kappa = 0.0
+        # history: (t, e_m, psi_rad, kappa_cmd) per advance()
+        self.trajectory: list[tuple[int, float, float, float]] = []
+
+    # --- world model -----------------------------------------------------
+    def pose(self) -> tuple[float, float, float]:
+        """Current absolute render pose ``(yaw_rad, dx_px, dy_px)``."""
+        c = self.cfg
+        dy = c.surge_px * math.sin(2.0 * math.pi * self.t / c.surge_period)
+        return self.psi_rad, -c.px_per_m * self.e_m, dy
+
+    def _disturbance_mps(self, t: int) -> float:
+        c = self.cfg
+        return c.drift_mps + c.gust_mps * math.sin(
+            2.0 * math.pi * t / c.gust_period
+        )
+
+    def observe(self) -> DriveCycleFrame:
+        """Render the current plant state as one frame with exact truth
+        (dropout frames keep their truth — the lanes are still there)."""
+        yaw, dx, dy = self.pose()
+        truth = np.array(
+            [
+                transform_rho_theta(float(r), float(th), yaw_rad=yaw,
+                                    dx=dx, dy=dy, cx=self._cx, cy=self._cy)
+                for r, th in self.base.lines_rho_theta
+            ],
+            np.float32,
+        ).reshape(-1, 2)
+        if self.t in self._dropout:
+            rng = np.random.default_rng([self.seed, 7_000_000 + self.t])
+            img = np.clip(
+                rng.normal(10.0, 3.0, (self.height, self.width)), 0, 255
+            ).astype(np.uint8)
+        else:
+            img = _warp_rigid(self.base.image, yaw_rad=yaw, dx=dx, dy=dy,
+                              fill=self._fill)
+            if self.t in self._burst:
+                rng = np.random.default_rng([self.seed, 9_000_000 + self.t])
+                speck = rng.uniform(size=img.shape)
+                img = img.copy()
+                img[speck < self._burst_frac] = 255
+                img[speck > 1.0 - self._burst_frac] = 0
+        return DriveCycleFrame(
+            scene=RoadScene(img, truth), t=self.t,
+            dropout=self.t in self._dropout,
+            noise_burst=self.t in self._burst,
+            dx_px=dx, yaw_deg=math.degrees(yaw), dy_px=dy,
+        )
+
+    # --- plant -----------------------------------------------------------
+    def advance(self, curvature: float | None) -> None:
+        """Step the plant on one steering command (``None`` = no command
+        landed this frame: hold the last one, decayed)."""
+        c = self.cfg
+        if curvature is None:
+            self._held_kappa *= c.hold_decay
+        else:
+            self._held_kappa = max(-c.max_curvature,
+                                   min(c.max_curvature, float(curvature)))
+        kappa = self._held_kappa
+        v_dt = c.speed_mps * c.frame_dt_s
+        self.psi_rad = max(-c.max_heading_rad,
+                           min(c.max_heading_rad,
+                               self.psi_rad + v_dt * kappa))
+        self.e_m += v_dt * math.sin(self.psi_rad) \
+            + self._disturbance_mps(self.t) * c.frame_dt_s
+        self.trajectory.append((self.t, self.e_m, self.psi_rad, kappa))
+        self.t += 1
+
+    # --- end metrics -----------------------------------------------------
+    @property
+    def cross_track(self) -> np.ndarray:
+        """|e| after each advance — THE end metric of the drive suite."""
+        return np.array([abs(e) for _, e, _, _ in self.trajectory], float)
+
+    @property
+    def max_cross_track_m(self) -> float:
+        ct = self.cross_track
+        return float(ct.max()) if ct.size else abs(self.e_m)
+
+    @property
+    def mean_cross_track_m(self) -> float:
+        ct = self.cross_track
+        return float(ct.mean()) if ct.size else abs(self.e_m)
+
+
+def standard_closed_loop(family: str, n_frames: int = 48,
+                         height: int = 240, width: int = 320, *,
+                         seed: int = 0,
+                         cfg: ClosedLoopConfig = ClosedLoopConfig()
+                         ) -> ClosedLoopCycle:
+    """The canonical closed-loop cycle the drive suite and tests share:
+    an off-center start plus drift+gust disturbance, with a 5-frame
+    dropout and a 4-frame noise burst on the noisy families — the regime
+    where coasting and holding must show up as trajectory error, not
+    just missed detections.
+
+    The dropout sits MID-TRANSIENT (frames 6-10, while the loop is still
+    pulling the off-center start back in): a blackout there costs real
+    trajectory error, so an arm that coasts on predicted tracks
+    measurably beats one that can only decay its last command.  A
+    dropout placed after the transient settles (``standard_drive_cycle``
+    puts its at n/3) is nearly free — hold-decay rides it out — and the
+    tracked-vs-per-frame trajectory gate would have nothing to bite on.
+    The noise burst lands at 2n/3, in steady state."""
+    noisy = family in NOISY_FAMILIES
+    burst0 = 2 * n_frames // 3
+    return ClosedLoopCycle(
+        family, n_frames, height, width, seed=seed, cfg=cfg,
+        dropout_frames=tuple(range(6, 11)) if noisy else (),
+        noise_burst_frames=(
+            tuple(range(burst0, burst0 + 4)) if noisy else ()
         ),
     )
