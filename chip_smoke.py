@@ -64,7 +64,15 @@ bucket, misses, frames/s on the real clock (warm dispatches under
 ``DetectionPlan.run`` on the same batch, device time and GPU activities
 of a dispatch, the same traffic on a virtual clock equal on the card and
 on the CPU, and a fault pass (stager death, failed and stalled dispatch,
-NaN frames) that must end every request.
+NaN frames) that must end every request.  The detection fleet
+(``fleet_phases``): ``ShardedDetectionService`` over such replicas, all
+on ``cuda:0``; on a virtual clock, 2 replicas through a replica killed
+with a batch in flight, ``add_replica()`` and 8 speculative races on a
+seeded lossy link, equal on the card and on the CPU (``fleet_virtual``);
+on the real clock, the service's traffic at 1, 2 and 4 replicas
+(``fleet``): latency, misses, frames/s, dispatches a replica, GPU
+activities and device-busy share, every DONE answer against
+``DetectionPlan.run``.
 
 The closed loop (``closed_loop_phases``): the drive suite's arms at
 240x320, 48 frames of "straight", "rain", "night" and "glare" (blind,
@@ -1472,6 +1480,85 @@ def matmul_phases(cuda_ms, params) -> dict:
 
 SERVICE_BUCKETS = ((240, 320), (480, 640), (720, 1280))
 SERVICE_TICK_S = 1.0 / 30.0   # the camera's frame period (virtual clock)
+SERVICE_COUNTERS = (
+    "dispatches", "completed", "rejected_queue_full", "shed_deadline",
+    "completed_late", "downshifted", "pre_downshifted", "served_downshift",
+    "served_coast", "gated_dispatches", "fused_dispatches", "evicted",
+    "rejected_invalid", "dispatch_faults", "stager_deaths")
+
+
+def recorded_service():
+    """``DetectionService``, keeping every batch it retires (what ran, on
+    the device, and for which requests) in ``retired``."""
+    from repro_torch.serve import DetectionService
+
+    class Recorded(DetectionService):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.retired = []
+
+        def _complete(self, grid, *, update_est=True):
+            if grid.in_flight is not None:
+                self.retired.append(grid.in_flight)
+            super()._complete(grid, update_est=update_est)
+
+    return Recorded
+
+
+def against_plan(records):
+    """Each DONE request of each retired batch against the batch run again
+    through its plan on the card: (checked, differing uids)."""
+    import torch
+
+    from repro_torch.serve import RequestStatus
+
+    checked, bad = 0, []
+    for rec in records:
+        again = rec.plan.run(rec.images, rec.theta_bins, rec.corridors)
+        for i, req in enumerate(rec.reqs):
+            if req is None or req.status is not RequestStatus.DONE:
+                continue
+            h, w = req.frame.shape[:2]
+            checked += 1
+            if not (torch.equal(req.result.peaks, again.peaks[i])
+                    and torch.equal(req.result.valid, again.valid[i])
+                    and torch.equal(req.result.edges,
+                                    again.edges[i][:h, :w])):
+                bad.append(req.uid)
+    return checked, bad
+
+
+def latency_by_bucket(bucket_for, reqs) -> dict:
+    """Latency p50 / p99 (ms) of the served requests of each bucket."""
+    import numpy as np
+
+    out = {}
+    for shape in SERVICE_BUCKETS:
+        lat = [r.latency_s * 1e3 for r in reqs
+               if r.served and bucket_for(r.frame) == shape]
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "served": len(lat),
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None}
+    return out
+
+
+def statuses(reqs) -> dict:
+    out = {}
+    for r in reqs:
+        out[r.status.name] = out.get(r.status.name, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` replaced by ``value`` inside the block."""
+    own = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, own)
 
 
 def service_phases() -> dict:
@@ -1521,9 +1608,7 @@ def service_phases() -> dict:
     from repro_torch.data import make_drive_cycle, scenario_batch
     from repro_torch.kernels import ops
     from repro_torch.runtime import ServiceFaultInjector
-    from repro_torch.serve import (
-        DetectionRequest, DetectionService, RequestStatus, VirtualClock,
-    )
+    from repro_torch.serve import DetectionRequest, VirtualClock
 
     H, W = DEPLOY_HW
     assert SERVICE_BUCKETS[-1] == DEPLOY_HW
@@ -1533,18 +1618,7 @@ def service_phases() -> dict:
              for j, (h, w) in enumerate(SERVICE_BUCKETS[:2])]
     one_offs = [small[t % 2][t // 2] for t in range(16)]
 
-    class Recorded(DetectionService):
-        """The service, keeping every batch it retires (what ran, on the
-        device, and for which requests)."""
-
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            self.retired = []
-
-        def _complete(self, grid, *, update_est=True):
-            if grid.in_flight is not None:
-                self.retired.append(grid.in_flight)
-            super()._complete(grid, update_est=update_est)
+    Recorded = recorded_service()
 
     def make(fused, clock, device=None, **kw):
         return Recorded(cfg, buckets=SERVICE_BUCKETS, batch_size=4,
@@ -1571,55 +1645,13 @@ def service_phases() -> dict:
         svc.run()
         return reqs
 
-    counter_names = (
-        "dispatches", "completed", "rejected_queue_full", "shed_deadline",
-        "completed_late", "downshifted", "pre_downshifted",
-        "served_downshift", "served_coast", "gated_dispatches",
-        "fused_dispatches", "evicted", "rejected_invalid",
-        "dispatch_faults", "stager_deaths")
-
     def counters(svc):
-        return {k: getattr(svc, k) for k in counter_names}
+        return {k: getattr(svc, k) for k in SERVICE_COUNTERS}
 
     def path_of(rec):
         c = rec.plan.cfg
         return ("fused" if c.fused else
                 "gated" if c.hough.theta_band is not None else "full")
-
-    def against_plan(records):
-        """Each DONE request of each retired batch against the batch run
-        again through its plan on the card: (checked, differing uids)."""
-        checked, bad = 0, []
-        for rec in records:
-            again = rec.plan.run(rec.images, rec.theta_bins, rec.corridors)
-            for i, req in enumerate(rec.reqs):
-                if req is None or req.status is not RequestStatus.DONE:
-                    continue
-                h, w = req.frame.shape[:2]
-                checked += 1
-                if not (torch.equal(req.result.peaks, again.peaks[i])
-                        and torch.equal(req.result.valid, again.valid[i])
-                        and torch.equal(req.result.edges,
-                                        again.edges[i][:h, :w])):
-                    bad.append(req.uid)
-        return checked, bad
-
-    def latency_by_bucket(svc, reqs):
-        out = {}
-        for shape in SERVICE_BUCKETS:
-            lat = [r.latency_s * 1e3 for r in reqs if r.served
-                   and svc.bucket_for(r.frame) == shape]
-            out[f"{shape[0]}x{shape[1]}"] = {
-                "served": len(lat),
-                "p50_ms": float(np.percentile(lat, 50)) if lat else None,
-                "p99_ms": float(np.percentile(lat, 99)) if lat else None}
-        return out
-
-    def statuses(reqs):
-        out = {}
-        for r in reqs:
-            out[r.status.name] = out.get(r.status.name, 0) + 1
-        return out
 
     # the hot-loop guard is live: a host sync inside it raises
     from repro_torch.serve import detection as det_mod
@@ -1657,7 +1689,7 @@ def service_phases() -> dict:
                list(svc.dispatch_log)[n_log:]]
         launches[name] = counts
         after = counters(svc)
-        delta = {k: after[k] - before[k] for k in counter_names}
+        delta = {k: after[k] - before[k] for k in SERVICE_COUNTERS}
         records = svc.retired[n_retired:]
         all_warm = svc._warmed == warmed
         d, f = delta["dispatches"], delta["fused_dispatches"]
@@ -1748,7 +1780,8 @@ def service_phases() -> dict:
               "guard_raises_on_a_host_sync": guard_raises,
               "wall_s": wall_s, "frames_per_s": served / wall_s,
               "misses_at_deadline": sum(r.missed_deadline for r in reqs),
-              "latency_ms_by_bucket": latency_by_bucket(svc, reqs),
+              "latency_ms_by_bucket": latency_by_bucket(svc.bucket_for,
+                                                        reqs),
               "launches": counts, "launches_expected": want_counts,
               "done_checked_against_plan_run": checked,
               "done_differing_from_plan_run": differ,
@@ -1816,6 +1849,361 @@ def service_phases() -> dict:
         failures.append("faults")
     if failures:
         raise SystemExit(f"detection service checks failed: {failures}")
+    return launches
+
+
+FLEET_TICK_S = 0.02        # the virtual clock's advance a router step
+FLEET_REPLICAS = (1, 2, 4)
+
+
+def fleet_phases() -> dict:
+    """The detection fleet on the card: ``ShardedDetectionService``
+    (``serve/fleet.py``) over replicas configured as in the service phase
+    (buckets 240x320 / 480x640 / 720x1280, batch 4, ``gate_band=40``,
+    ``fused_corridors=8``, steering, auto compaction), every replica on
+    ``cuda:0`` and its current stream.
+
+      * ``fleet_virtual``: 2 replicas on a ``VirtualClock`` advanced 20 ms
+        a router step, on the card and with ``device="cpu"``.  Two
+        16-frame 720x1280 sessions ("converging", "rain") interleaved with
+        8 one-offs, 300 ms deadlines; replica 0 killed by
+        ``kill_replica_at``, armed for the first router step from the
+        sixth on where it has a batch in flight; ``add_replica()``, the
+        newcomer made the remote; 8 speculative races of 720x1280 frames
+        (the local tier at 240x320) on
+        ``NetworkConfig(seed=0, rtt_median_s=0.03, jitter_sigma=0.5,
+        loss=0.1)``, race 2's uplink and race 5's downlink forced lost.
+        Before each router step the traffic loop waits for every live
+        replica's in-flight batch, so each step's reap retires what the
+        CPU's does.  Every request terminal; each request's status,
+        bucket, downshift, stamps and replica, each session's location
+        and tracks, every fleet and replica counter and every race's
+        decision equal on the card and the CPU, peaks, validity and edges
+        bit for bit; a session's frames on one replica but across the one
+        failover; every DONE answer on the card equal to its batch run
+        again through its plan.
+      * ``fleet``: the service phase's traffic (two interleaved 32-frame
+        720x1280 sessions and 16 one-offs, 300 ms deadlines) as fast as
+        the fleet steps, on the real clock, at 1, 2 and 4 replicas, after
+        every replica's plans are warmed; the launch counts zeroed just
+        before the traffic and read just after.  Latency p50 / p99 a
+        bucket, misses, frames/s, dispatches a replica; the same traffic
+        again on fresh sessions under the profiler (``gpu_trace``): GPU
+        activities a dispatch, device-busy share.  Every request
+        terminal, every dispatch warm (so run under
+        ``set_sync_debug_mode("error")``), every DONE answer equal to its
+        batch run again through its plan, each session on one replica.
+
+    Any failure raises.  Returns each run's launch counts for the
+    ``kernels`` line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.paper_lines import DEPLOY_HW, REALTIME_BUDGET_S
+    from repro_torch.core import ControlConfig, HoughConfig, PipelineConfig
+    from repro_torch.core.network import NetworkConfig
+    from repro_torch.core.offload import SpeculativeConfig
+    from repro_torch.data import make_drive_cycle, scenario_batch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ServiceFaultInjector
+    from repro_torch.serve import DetectionRequest, VirtualClock
+    from repro_torch.serve import fleet as fleet_mod
+
+    t_phase = time.perf_counter()
+    H, W = DEPLOY_HW
+    cfg = PipelineConfig(hough=HoughConfig(compact=True, max_edges="auto"))
+    small = [scenario_batch(MAIN_FAMILIES, h, w, seed=2 + j)[0]
+             for j, (h, w) in enumerate(SERVICE_BUCKETS[:2])]
+    one_offs = [small[t % 2][t // 2] for t in range(16)]
+    race_frames = scenario_batch(MAIN_FAMILIES, H, W, seed=0)[0]
+    fleet_counters = (
+        "routed", "session_migrations", "session_failovers", "requeued",
+        "failed_on_death", "speculative_races", "speculative_upgrades",
+        "speculative_timeouts", "uplink_lost_total", "downlink_lost_total",
+        "scale_up_migrations", "host_kills")
+    kw = dict(buckets=SERVICE_BUCKETS, batch_size=4, gate_band=40,
+              fused_corridors=8, steering=ControlConfig())
+
+    class Settled(fleet_mod.ShardedDetectionService):
+        """The fleet, waiting before each router step for every live
+        replica's in-flight batch (the card's counterpart of a CPU result,
+        ready once ``run`` returns)."""
+
+        def step(self, **step_kw):
+            for rep in self.alive_replicas:
+                for g in rep.service.grids.values():
+                    if (g.in_flight is not None
+                            and g.in_flight.event is not None):
+                        g.in_flight.event.synchronize()
+            return super().step(**step_kw)
+
+    def ran_on(svc) -> dict:
+        """id(request) -> the replica whose batch ran it."""
+        return {id(r): rep.index for rep in svc.replicas
+                for rec in rep.service.retired for r in rec.reqs
+                if r is not None}
+
+    def virtual_run(device):
+        cycles = {sid: make_drive_cycle(sid, 16, H, W, seed=0).images()
+                  for sid in ("converging", "rain")}
+        clock = VirtualClock()
+        faults = ServiceFaultInjector(lose_uplink_races=(2,),
+                                      lose_downlink_races=(5,))
+        svc = Settled(cfg, n_replicas=2, device=device, clock=clock,
+                      faults=faults, speculative=SpeculativeConfig(
+                          local_shape=SERVICE_BUCKETS[0],
+                          network=NetworkConfig(
+                              seed=0, rtt_median_s=0.03, jitter_sigma=0.5,
+                              loss=0.1)), **kw)
+        reqs, kill_step = [], None
+        for t in range(16):
+            arrivals = [(cycles[sid][t], sid) for sid in cycles]
+            if t < 8:
+                arrivals.append((one_offs[t], None))
+            for frame, sid in arrivals:
+                reqs.append(DetectionRequest(
+                    uid=len(reqs), frame=frame, session_id=sid,
+                    deadline_s=REALTIME_BUDGET_S))
+                svc.submit(reqs[-1])
+            if kill_step is None and svc._steps >= 6 and any(
+                    g.in_flight is not None
+                    for g in svc.replicas[0].service.grids.values()):
+                kill_step = svc._steps
+                faults.kill_replica_at = ((kill_step, 0),)
+            svc.step()
+            clock.advance(FLEET_TICK_S)
+        svc.run()
+        svc.remote_replica = svc.add_replica()
+        for frame in race_frames:
+            reqs.append(DetectionRequest(uid=len(reqs), frame=frame,
+                                         deadline_s=REALTIME_BUDGET_S))
+            svc.submit_speculative(reqs[-1])
+            svc.step()
+            clock.advance(FLEET_TICK_S)
+        svc.run()
+        svc.close()
+        return svc, reqs, kill_step
+
+    def request_row(req, where):
+        return (req.status.name, req.bucket, req.downshift, req.submitted_at,
+                req.finished_at, req.deadline_at, where.get(id(req)))
+
+    failures = []
+    launches = {}
+    with swapped(fleet_mod, "DetectionService", recorded_service()):
+        # --- (a) the virtual clock: the card against the CPU
+        runs = {}
+        for where, device in (("card", None), ("cpu", "cpu")):
+            if device is None:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[where] = (*virtual_run(device), time.perf_counter() - t0)
+            if device is None:
+                torch.cuda.synchronize()
+                launches["virtual"] = ops.launch_counts()
+        (gsvc, greqs, gkill, card_s), (csvc, creqs, ckill, cpu_s) = (
+            runs["card"], runs["cpu"])
+        gwhere, cwhere = ran_on(gsvc), ran_on(csvc)
+        # every request and each race's two clones (a remote clone whose
+        # uplink was lost never runs: it stays pending, and equal)
+        gall = greqs + [r for t in gsvc._tickets for r in (t.local, t.remote)]
+        call = creqs + [r for t in csvc._tickets for r in (t.local, t.remote)]
+        differ, lines_err = [], 0.0
+        for i, (a, b) in enumerate(zip(gall, call)):
+            same = (request_row(a, gwhere) == request_row(b, cwhere)
+                    and (a.steering is None) == (b.steering is None)
+                    and (a.steering is None
+                         or tuple(a.steering) == tuple(b.steering))
+                    and [dataclasses.astuple(t) for t in a.tracks or ()]
+                    == [dataclasses.astuple(t) for t in b.tracks or ()]
+                    and (a.result is None) == (b.result is None))
+            if same and a.result is not None:
+                ra = [torch.as_tensor(x).cpu() for x in a.result[:4]]
+                rb = [torch.as_tensor(x).cpu() for x in b.result[:4]]
+                same = all(torch.equal(x, y) for x, y in zip(ra[1:], rb[1:]))
+                lines_err = max(lines_err,
+                                (ra[0] - rb[0]).abs().max().item())
+            if not same:
+                differ.append(i)
+        sessions = {}
+        for r in greqs:
+            if r.session_id is not None and id(r) in gwhere:
+                sessions.setdefault(r.session_id, set()).add(gwhere[id(r)])
+        replica_counters = [
+            {k: getattr(rep.service, k) for k in SERVICE_COUNTERS}
+            for rep in gsvc.replicas]
+        equal = {
+            "kill_step": gkill == ckill,
+            "fleet_counters": (
+                {k: getattr(gsvc, k) for k in fleet_counters}
+                == {k: getattr(csvc, k) for k in fleet_counters}),
+            "replica_counters": replica_counters == [
+                {k: getattr(rep.service, k) for k in SERVICE_COUNTERS}
+                for rep in csvc.replicas],
+            "dispatch_logs": [list(r.service.dispatch_log)
+                              for r in gsvc.replicas]
+            == [list(r.service.dispatch_log) for r in csvc.replicas],
+            "session_locations_and_tracks": all(
+                gsvc.session_location(s) == csvc.session_location(s)
+                and [dataclasses.astuple(t) for t in gsvc.session_tracks(s)]
+                == [dataclasses.astuple(t) for t in csvc.session_tracks(s)]
+                for s in ("converging", "rain")),
+            "race_decisions": (
+                [dataclasses.astuple(t.decision) for t in gsvc._tickets]
+                == [dataclasses.astuple(t.decision) for t in csvc._tickets]),
+            "requests": not differ,
+        }
+        checked, plan_differ = against_plan(
+            [rec for rep in gsvc.replicas for rec in rep.service.retired])
+        d = sum(rep.service.dispatches for rep in gsvc.replicas)
+        f = sum(rep.service.fused_dispatches for rep in gsvc.replicas)
+        want = {k: 0 for k in launches["virtual"]}
+        want.update(conv2d_gemm=2 * (d - f), hough_vote=d, fused_detect=f)
+        two_replica_sessions = sum(len(v) > 1 for v in sessions.values())
+        ok = (all(equal.values()) and gkill is not None
+              and all(r.is_terminal for r in greqs + creqs)
+              and all(t.resolved for t in gsvc._tickets)
+              and not plan_differ and lines_err < 1e-2
+              and launches["virtual"] == want and f > 0
+              and two_replica_sessions <= gsvc.session_failovers == 1
+              and all(len(v) <= 2 for v in sessions.values()))
+        emit({"phase": "fleet_virtual", "replicas": 2, "added": 1,
+              "tick_s": FLEET_TICK_S, "deadline_s": REALTIME_BUDGET_S,
+              "kill_step": gkill, "requests": len(greqs),
+              "statuses": statuses(greqs),
+              "counters": {k: getattr(gsvc, k) for k in fleet_counters},
+              "replica_counters": replica_counters,
+              "sessions_replicas": {s: sorted(v)
+                                    for s, v in sessions.items()},
+              "races": [{"decision": dataclasses.asdict(t.decision),
+                         "uplink_lost": t.uplink.lost,
+                         "downlink_lost": t.downlink.lost}
+                        for t in gsvc._tickets],
+              "equal_card_cpu": equal, "requests_differing": differ,
+              "lines_max_abs_err_vs_cpu": lines_err,
+              "done_checked_against_plan_run": checked,
+              "done_differing_from_plan_run": plan_differ,
+              "launches": launches["virtual"], "launches_expected": want,
+              "card_s": card_s, "cpu_s": cpu_s, "ok": ok})
+        if not ok:
+            failures.append("virtual")
+        del runs, gsvc, csvc, gall, call
+
+        # --- (b) the real clock, the card alone, at 1, 2 and 4 replicas
+        cycle = make_drive_cycle("converging", 32, H, W, seed=0).images()
+
+        def traffic(svc, sessions, uid0):
+            reqs = []
+            for t in range(32):
+                arrivals = [(cycle[t], sid) for sid in sessions]
+                if t < len(one_offs):
+                    arrivals.append((one_offs[t], None))
+                for frame, sid in arrivals:
+                    reqs.append(DetectionRequest(
+                        uid=uid0 + len(reqs), frame=frame, session_id=sid,
+                        deadline_s=REALTIME_BUDGET_S))
+                    svc.submit(reqs[-1])
+                svc.step()
+            svc.run()
+            return reqs
+
+        for n in FLEET_REPLICAS:
+            svc = fleet_mod.ShardedDetectionService(cfg, n_replicas=n, **kw)
+            for rep in svc.replicas:
+                # every plan of every replica built and run once
+                s = rep.service
+                for frame in (one_offs[0], one_offs[1], cycle[0]):
+                    s.submit(DetectionRequest(uid=-1, frame=frame))
+                    s.run()
+                for t in range(10):
+                    s.submit(DetectionRequest(uid=-1, frame=cycle[t],
+                                              session_id="warm"))
+                    s.run()
+                s.end_session("warm")
+            warmed = [set(r.service._warmed) for r in svc.replicas]
+            d0 = [r.service.dispatches for r in svc.replicas]
+            f0 = [r.service.fused_dispatches for r in svc.replicas]
+            n_ret = [len(r.service.retired) for r in svc.replicas]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = traffic(svc, ("cam0", "cam1"), 0)
+            wall_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            launches[f"{n}_replicas"] = counts
+            per_rep = [r.service.dispatches - d for r, d in
+                       zip(svc.replicas, d0)]
+            fused = sum(r.service.fused_dispatches - f for r, f in
+                        zip(svc.replicas, f0))
+            records = [rec for r, k in zip(svc.replicas, n_ret)
+                       for rec in r.service.retired[k:]]
+            checked, plan_differ = against_plan(records)
+            where = {id(q): r.index for r, k in zip(svc.replicas, n_ret)
+                     for rec in r.service.retired[k:] for q in rec.reqs
+                     if q is not None}
+            on = {sid: sorted({where[id(q)] for q in reqs
+                               if q.session_id == sid and id(q) in where})
+                  for sid in ("cam0", "cam1")}
+            all_warm = [set(r.service._warmed) for r in svc.replicas] == warmed
+            want = {k: 0 for k in counts}
+            want.update(conv2d_gemm=2 * (sum(per_rep) - fused),
+                        hough_vote=sum(per_rep), fused_detect=fused)
+            # the same traffic on fresh sessions under the profiler
+            dt0 = svc.dispatches
+            tr = gpu_trace(lambda: traffic(svc, ("cam2", "cam3"), 1000),
+                           f"fleet_{n}_replicas", 1)
+            traced_dispatches = svc.dispatches - dt0
+            svc.close()
+            served = sum(r.served for r in reqs)
+            ok = (all(r.is_terminal for r in reqs) and not plan_differ
+                  and checked > 0 and all_warm and counts == want
+                  and all(len(v) == 1 for v in on.values())
+                  and svc.session_migrations == svc.session_failovers == 0)
+            emit({"phase": "fleet", "replicas": n, "device": "cuda:0",
+                  "requests": len(reqs), "statuses": statuses(reqs),
+                  "all_terminal": all(r.is_terminal for r in reqs),
+                  "wall_s": wall_s, "frames_per_s": served / wall_s,
+                  "misses_at_deadline": sum(r.missed_deadline for r in reqs),
+                  "latency_ms_by_bucket": latency_by_bucket(
+                      svc.replicas[0].service.bucket_for, reqs),
+                  "dispatches_by_replica": per_rep,
+                  "fused_dispatches": fused,
+                  # each replica's service-time estimate a bucket after the
+                  # traffic (ms; measured or still the initial guess): on
+                  # one stream a replica's samples include its neighbours'
+                  # work queued before its own
+                  "est_ms_by_replica": [
+                      {f"{g.shape[0]}x{g.shape[1]}":
+                       [g.est_s * 1e3, g.est_measured]
+                       for g in r.service.grids.values()}
+                      for r in svc.replicas],
+                  "sessions_replicas": on,
+                  "every_dispatch_warm_and_guarded": all_warm,
+                  "sync_debug_mode_on_warm_dispatches": "error",
+                  "launches": counts, "launches_expected": want,
+                  "done_checked_against_plan_run": checked,
+                  "done_differing_from_plan_run": plan_differ,
+                  "traced": {
+                      "dispatches": traced_dispatches,
+                      "gpu_activities": tr["gpu_activities"],
+                      "gpu_activities_per_dispatch":
+                          tr["gpu_activities"] / max(traced_dispatches, 1),
+                      "device_busy_ms": tr["device_busy_ms"],
+                      "device_span_ms": tr["device_span_ms"],
+                      "device_busy_share_of_span":
+                          tr["device_busy_share_of_span"],
+                      "traced_wall_ms": tr["traced_wall_ms"],
+                      "whole": tr["whole"], "trace": tr["trace"]},
+                  "ok": ok})
+            if not ok:
+                failures.append(f"{n}_replicas")
+            del svc, records
+    emit({"phase": "fleet_seconds", "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise SystemExit(f"fleet checks failed: {failures}")
     return launches
 
 
@@ -2850,8 +3238,9 @@ def main(argv=None) -> int:
     if len(out) != 20 or not stream_eq:
         raise SystemExit("detect_stream disagrees with detect_batch")
 
-    # --- 5b. the detector's serving path: DetectionService ---------------
+    # --- 5b. the detector's serving path: DetectionService, the fleet -----
     service_launches = service_phases()
+    fleet_launches = fleet_phases()
 
     # --- 5c. the closed loop; the paper's platform matrix ----------------
     loop_launches = closed_loop_phases()
@@ -3383,6 +3772,8 @@ def main(argv=None) -> int:
         for name, counts in service_launches.items():
             k["by_path"][f"detection_service_{name}"] = {
                 "launches": counts[k["name"]]}
+        for name, counts in fleet_launches.items():
+            k["by_path"][f"fleet_{name}"] = {"launches": counts[k["name"]]}
         # the closed loop's arms, 48 frames each, and the paper's
         # platforms, one frame each, counted the same way
         for name, counts in loop_launches.items():

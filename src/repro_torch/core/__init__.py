@@ -3,7 +3,8 @@
 and phase profiling; the fused hot path (fused_detect kernel -> vote
 kernel); the temporal layer, lane tracking with prediction-gated and
 corridor-filtered detection; and the consumer it serves, bird's-eye
-geometry and a pure-pursuit lateral controller."""
+geometry and a pure-pursuit lateral controller; the fleet's seeded
+network model and the paper's placement rule in the card's terms."""
 
 from .canny import (  # noqa: F401
     GAUSS_5x5, SOBEL_X, SOBEL_Y, CannyConfig, canny, estimate_edge_count,
@@ -30,6 +31,10 @@ from .control import (  # noqa: F401
     ControlConfig, LateralController, SteeringCommand, Waypoints,
     extract_waypoints, ground_boundaries,
 )
+from .network import (  # noqa: F401
+    Delivery, NetworkConfig, NetworkModel, expected_rtt_s, force_lost,
+)
+from .offload import Placement, place, plan, plan_line_detection  # noqa: F401
 from .pipeline import DetectionResult, LineDetector, PipelineConfig  # noqa: F401
 from .profiling import PhaseProfiler, StageCost, line_detection_costs  # noqa: F401
 from .quantize import (  # noqa: F401

@@ -25,9 +25,9 @@ deterministic schedule of the fault classes exercised against
     scheduler steps (a large jump expires a whole EDF wave at once).
   * **replica death** — ``replicas_to_kill(k)`` returns the replica
     indices scheduled to die before router step ``k`` of a sharded
-    fleet (the reference's ``serve/fleet.py``, not ported yet); the router
-    fails the dead replica's in-flight work, re-routes its queue to
-    survivors, and drops its session pins (trackers die with the
+    fleet (:class:`repro_torch.serve.fleet.ShardedDetectionService`); the
+    router fails the dead replica's in-flight work, re-routes its queue
+    to survivors, and drops its session pins (trackers die with the
     replica — failover is explicit, never silent).
   * **host death** — ``hosts_to_kill(k)`` is the same schedule one
     failure domain up: a host id whose *entire replica group* dies
