@@ -87,6 +87,17 @@ serial ``hough_paper_loop``), gemm, gemm+hough, +fused and +int on one
 240x320 frame, speedups against rocket, the serial loop's votes against
 the vote kernel's and its CPU run.
 
+The training slice (``train_phases``): the two LM kernels' gradients
+through ``kernels.ops`` (the kernel forward, a plain backward) against
+the plain versions' autograd on the card (``train_kernel_grads``);
+zamba2-1.2b at full width cut to 10 Mamba-2 layers, f32, two train steps
+on the card against the port's CPU (``train_vs_cpu``); and
+``launch.train.main`` at full width and depth, bf16 over the f32 master,
+8 steps of 8 x 512 tokens with a checkpoint at step 4 and a ``--resume``
+from it (``train``): losses, ms a warm step, tokens/s, peak memory, each
+kernel's launches a step (twice the forward's with remat) and one step
+traced.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -1147,6 +1158,353 @@ def lm_phases(cuda_ms, parent=None) -> list:
          "max_abs_err": ssd_err, **ssd_mean},
         matmul_entry,
     ]
+
+
+# The training slice: the CLI's run at full width and depth, and its cut
+TRAIN_ARGV = ("--arch", "zamba2-1.2b", "--preset", "full", "--global-batch",
+              "8", "--seq", "512", "--steps", "8", "--ckpt-every", "4",
+              "--log-every", "1")
+TRAIN_RESUME_AT = 4
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _grads_of(fn, inputs, cot):
+    """``fn``'s outputs and the gradients of every input against ``cot``."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, leaves, cot)
+
+
+KERNEL_KINDS = (("ssd_scan", ("ssd_scan",)),
+                ("flash_attention", ("flash_attention",)),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("reduce", ("reduce_kernel",)),
+                ("copy", ("copy_kernel", "CatArrayBatched")),
+                ("elementwise", ("elementwise_kernel",)))
+
+
+def trace_by_kind(path: Path) -> dict:
+    """A saved trace's GPU activities summed by kind (the first of
+    ``KERNEL_KINDS`` whose substring the name holds; memsets and copies
+    by their category; "other" for the rest): calls and ms of each."""
+    events = json.loads(path.read_text())["traceEvents"]
+    out: dict[str, dict] = {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memset", "gpu_memcpy"):
+            continue
+        if "spin_kernel" in e["name"]:
+            continue
+        kind = ("copy" if cat != "kernel" else next(
+            (k for k, subs in KERNEL_KINDS
+             if any(x in e["name"] for x in subs)), "other"))
+        row = out.setdefault(kind, {"calls": 0, "ms": 0.0})
+        row["calls"] += 1
+        row["ms"] += e["dur"] / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms"]))
+
+
+def train_phases() -> dict:
+    """The training slice (``repro_torch.train``, ``launch/train.py``):
+    the two LM kernels' gradients through ``kernels.ops`` against the
+    plain versions' autograd on the card (``train_kernel_grads``);
+    zamba2-1.2b at full width, cut to the serving anchor's 10 Mamba-2
+    layers, f32, two steps on the card against the port's CPU
+    (``train_vs_cpu``); and ``launch.train.main`` at full width and depth
+    in bf16 over the f32 master, 8 steps of 8 x 512 tokens with a
+    checkpoint at step 4, then ``--resume`` from it (``train``): losses,
+    ms a warm step, tokens/s, peak memory, each kernel's launches a step,
+    and one step traced.  Returns the kernels' launches in that run and in
+    one step."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipelineConfig, TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.optim import adamw_update
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+
+    # --- train_kernel_grads ------------------------------------------------
+    # Attention: the kernel's forward, the plain blockwise backward (lse
+    # from the plain pass) against autograd of the dense plain version on
+    # the card.  f32: 1e-4 of max|g|; bf16: 1e-2 of max|g| (both round an
+    # f32 gradient to bf16 once; the backward's row sums read the kernel's
+    # bf16 output, within a bf16 ulp of the plain one).  SSD: the kernel's
+    # forward, the chunked plain form recomputed for the backward, against
+    # autograd of the chunked plain form: 1e-5 of max|g| (the same ops),
+    # y within 1e-4 (3xTF32); dt = softplus(N(0, 1)), whose 128-step sums
+    # pass 88 (the masked exponent, ROADMAP.md §3).  The first rows are
+    # the train path's own shapes.
+    t_grads = time.perf_counter()
+    checks = []
+    bf16, f32 = torch.bfloat16, torch.float32
+    attn_cases = [((8, 32, 32, 512, 64), True, None, bf16),
+                  ((8, 32, 32, 512, 64), True, None, f32),
+                  ((1, 32, 8, 300, 64), True, 128, bf16),
+                  ((1, 4, 1, 130, 128), True, 64, bf16),
+                  ((2, 8, 2, 200, 64), False, None, f32)]
+    for (B, Hq, Hkv, L, D), causal, window, dt in attn_cases:
+        q = randn(B, Hq, L, D, dtype=dt)
+        k, v = (randn(B, Hkv, L, D, dtype=dt) for _ in range(2))
+        do = randn(B, Hq, L, D, dtype=dt)
+        kw = dict(causal=causal, window=window)
+        ops.reset_launch_counts()
+        (out,), got = _grads_of(
+            lambda a, b, c: ops.flash_attention(a, b, c, **kw), (q, k, v),
+            (do,))
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()["flash_attention"]
+        (want_out,), want = _grads_of(
+            lambda a, b, c: ref.attention(a, b, c, **kw), (q, k, v), (do,))
+        tol = 1e-4 if dt == f32 else 1e-2
+        out_tol = 1e-5 if dt == f32 else 1e-2
+        errs = {n: _rel_err(g, w) for n, g, w in zip("qkv", got, want)}
+        out_err = _rel_err(out, want_out)
+        checks.append({
+            "kernel": "flash_attention", "shape": [B, Hq, Hkv, L, D],
+            "causal": causal, "window": window,
+            "dtype": str(dt).removeprefix("torch."),
+            "launches": launched,
+            "out_rel_err": out_err,
+            "grad_rel_err": errs,
+            "tol": f"{tol} of max|g|, out {out_tol} of max|out|",
+            "ok": bool(launched == 1 and max(errs.values()) <= tol
+                       and out_err <= out_tol
+                       and all(torch.isfinite(g).all() for g in got))})
+    for b, L, G in ((8, 512, 1), (2, 128, 1), (2, 128, 2), (2, 999, 1),
+                    (2, 999, 2), (2, 512, 2)):
+        H = P = N = 64
+        x = randn(b, L, H, P, scale=0.1)
+        dt_ = torch.nn.functional.softplus(randn(b, L, H))
+        A = -torch.rand(H, generator=gen, device=dev) - 0.5
+        Bm, C = randn(b, L, G, N), randn(b, L, G, N)
+        dy, dh = randn(b, L, H, P), randn(b, H, N, P)
+        ops.reset_launch_counts()
+        (y, h), got = _grads_of(ops.ssd_scan, (x, dt_, A, Bm, C), (dy, dh))
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()["ssd_scan"]
+        (yw, hw), want = _grads_of(ref.ssd_scan_chunked, (x, dt_, A, Bm, C),
+                                   (dy, dh))
+        errs = {n: _rel_err(g, w)
+                for n, g, w in zip(("x", "dt", "A", "B", "C"), got, want)}
+        y_err = max(_rel_err(y, yw), _rel_err(h, hw))
+        checks.append({
+            "kernel": "ssd_scan", "shape": [b, L, H, P, N, G],
+            "launches": launched, "y_rel_err": y_err,
+            "max_decay_sum_in_a_chunk": float(
+                (dt_ * -A).unflatten(1, (-1, min(128, L))).sum(2).max())
+            if L % min(128, L) == 0 else None,
+            "grad_rel_err": errs, "tol": "1e-5 of max|g|, y 1e-4",
+            "ok": bool(launched == 1 and max(errs.values()) <= 1e-5
+                       and y_err <= 1e-4
+                       and all(torch.isfinite(g).all() for g in got))})
+    emit({"phase": "train_kernel_grads", "checks": checks,
+          "seconds": time.perf_counter() - t_grads})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise SystemExit(f"LM kernel gradients failed: {bad}")
+
+    # --- train_vs_cpu: full width, 10 Mamba-2 layers, f32 ------------------
+    # Two steps from the same parameters and batches on the card and on
+    # the port's CPU.  loss within 1e-4 relative, grad_norm within 1e-3;
+    # each parameter within 2 lr (an update is lr times a ratio of the
+    # moments, about 1 for a first step, so a gradient at rounding level
+    # may flip it), no more than 1% of the elements past 1e-6, and the
+    # card's change of the parameters within 0.1 of the CPU's in norm (a
+    # skipped update reads 1, one of the wrong sign 2).
+    t_anchor = time.perf_counter()
+    cfg8 = get("zamba2-1.2b").replace(n_layers=8, compute_dtype="float32")
+    params8 = build(cfg8, device="cpu").init_master(
+        torch.Generator().manual_seed(0))
+    stream8 = TokenStream(TokenPipelineConfig(vocab=cfg8.vocab, seq_len=128,
+                                              global_batch=2, seed=0))
+    opt8 = AdamWConfig(peak_lr=1e-4, warmup_steps=0, decay_steps=10)
+
+    def two_steps(device):
+        m = build(cfg8, device=device)
+        state = init_train_state(tree_map(lambda t: t.to(device), params8))
+        step = make_train_step(m, opt8)
+        rows = []
+        t0 = time.perf_counter()
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in stream8.batch_at(i).items()}
+            state, met = step(state, batch)
+            rows.append({k: float(met[k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
+        return state, rows, time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    card_state, card_rows, card_s = two_steps(dev)
+    card_launches = ops.launch_counts()
+    cpu_state, cpu_rows, cpu_s = two_steps("cpu")
+    p_err = beyond = total = 0
+    gap_sq = step_sq = 0.0
+    for (_, a), (_, b), (_, p0) in zip(tree_items(card_state.params),
+                                       tree_items(cpu_state.params),
+                                       tree_items(params8)):
+        a = a.cpu()
+        d = (a - b).abs()
+        p_err = max(p_err, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        total += d.numel()
+        gap_sq += float(d.double().square().sum())
+        step_sq += float((b - p0).double().square().sum())
+    update_rel = (gap_sq / step_sq) ** 0.5 if step_sq else float("inf")
+    loss_rel = max(abs(a["loss"] / b["loss"] - 1)
+                   for a, b in zip(card_rows, cpu_rows))
+    gn_rel = max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                 for a, b in zip(card_rows, cpu_rows))
+    anchor_ok = (loss_rel <= 1e-4 and gn_rel <= 1e-3
+                 and p_err <= 2 * opt8.peak_lr and beyond <= 0.01 * total
+                 and update_rel <= 0.1
+                 and all(np.isfinite(r["loss"]) for r in card_rows))
+    emit({"phase": "train_vs_cpu", "config": "zamba2-1.2b, n_layers=8 (one "
+          "superblock of 6 and the tail: 10 Mamba-2 layers), f32 compute, "
+          "remat, TF32 off", "batch": 2, "seq": 128, "steps": 2,
+          "params": build(cfg8, device="cpu").param_count(),
+          "card": card_rows, "cpu": cpu_rows,
+          "card_launches": card_launches,
+          "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel,
+          "param_max_abs_err": p_err, "param_bound": 2 * opt8.peak_lr,
+          "param_elements_past_1e-6": beyond, "param_elements": total,
+          "param_elements_past_1e-6_limit": 0.01 * total,
+          "update_rel_err": update_rel, "update_rel_bound": 0.1,
+          "card_seconds": card_s, "cpu_seconds": cpu_s,
+          "seconds": time.perf_counter() - t_anchor, "ok": anchor_ok})
+    del card_state, cpu_state, params8
+    if not anchor_ok:
+        raise SystemExit("full-width f32 train steps: the card left the CPU "
+                         f"(loss {loss_rel}, grad_norm {gn_rel}, params "
+                         f"{p_err}, {beyond} past 1e-6, update "
+                         f"{update_rel})")
+
+    # --- train: launch.train.main at full width and depth ------------------
+    # bf16 compute over the f32 master, remat, checkpoints every 4 steps
+    # under build/; the step-8 checkpoint is removed and --resume runs
+    # steps 5-8 from step 4's.  Step 5's loss is the forward of the same
+    # restored parameters on the same batch: equal within 1e-6 relative.
+    t_train = time.perf_counter()
+    # earlier phases' tensors held only by reference cycles are freed
+    # here, so that the run's peak is its own (the rest is reported)
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before_gb = torch.cuda.memory_allocated() / 1e9
+    ckpt_root = ROOT / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ckpt_root))
+    argv = [*TRAIN_ARGV, "--ckpt", str(ckpt)]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_cli.main(argv)
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = int(state.step)
+        del state
+        shutil.rmtree(ckpt / f"step_{steps:08d}")
+        t0 = time.perf_counter()
+        state, hist_r = train_cli.main(argv + ["--resume"])
+        resume_s = time.perf_counter() - t0
+        ckpt_mb = sum(f.stat().st_size for f in ckpt.rglob("*")) / 1e6
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    args = train_cli.parse_args(argv)
+    cfg = train_cli.preset_config(args.arch, args.preset)
+    model = build(cfg)
+    step_fn = make_train_step(model, train_cli.optimizer_config(args))
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(steps).items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, met = step_fn(state, batch)
+    torch.cuda.synchronize()
+    one_step_ms = (time.perf_counter() - t0) * 1e3
+    per_step = ops.launch_counts()
+    traced_step = gpu_trace(lambda: step_fn(state, batch), "train_step", 1,
+                            focus=("flash_attention", "ssd_scan"))
+    by_kind = trace_by_kind(ROOT / traced_step["trace"])
+    # the update alone: AdamW over the full state with the parameters as
+    # gradients, behind a ~50 ms spin that hides its ~1000 launches
+    update_ms = device_ms(lambda: adamw_update(
+        state.params, state.opt, state.params, state.step,
+        AdamWConfig(peak_lr=args.lr)), n=3, spin=100_000_000)
+    del state, met
+    first = {h["step"]: h["loss"] for h in hist}
+    resumed = {h["step"]: h["loss"] for h in hist_r}
+    warm = [h["ms_per_step"] for h in hist[1:]]
+    ms_warm = float(np.median(warm))
+    tokens = args.global_batch * args.seq
+    n_super = cfg.n_layers // cfg.share_every
+    n_mamba = n_super * cfg.share_every + (cfg.n_layers % cfg.share_every) ** 2
+    want_step = {"flash_attention": 2 * n_super, "ssd_scan": 2 * n_mamba}
+    step5_rel = abs(resumed[TRAIN_RESUME_AT + 1]
+                    / first[TRAIN_RESUME_AT + 1] - 1)
+    train_ok = (all(np.isfinite(h["loss"]) for h in hist + hist_r)
+                and sorted(resumed) == list(range(TRAIN_RESUME_AT + 1,
+                                                  steps + 1))
+                and step5_rel <= 1e-6
+                and {k: per_step[k] for k in want_step} == want_step
+                and {k: launches[k] for k in want_step}
+                == {k: steps * v for k, v in want_step.items()})
+    emit({"phase": "train", "argv": argv[:-2] + ["--ckpt", "<tmp>"],
+          "model": cfg.name, "params": model.param_count(),
+          "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+          "remat": cfg.remat, "tokens_per_step": tokens,
+          "losses": first, "losses_resumed": resumed,
+          "step5_loss_rel_diff": step5_rel, "step5_tol": 1e-6,
+          "resumed_loss_rel_diff": {
+              s: abs(resumed[s] / first[s] - 1) for s in resumed},
+          "grad_norms": {h["step"]: h["grad_norm"] for h in hist},
+          "lrs": {h["step"]: h["lr"] for h in hist},
+          "ms_per_step": {h["step"]: h["ms_per_step"] for h in hist},
+          "ms_per_warm_step_median": ms_warm,
+          "tokens_per_s": tokens / ms_warm * 1e3,
+          "one_step_ms_after_the_runs": one_step_ms,
+          "peak_memory_gb": peak_gb,
+          "allocated_before_the_run_gb": allocated_before_gb,
+          "launches_in_run": {k: launches[k] for k in want_step},
+          "launches_per_step": per_step, "expected_per_step": want_step,
+          "checkpoint_mb": ckpt_mb, "run_seconds": run_s,
+          "resume_seconds": resume_s, "profiled_step": traced_step,
+          "device_ms_by_kind": by_kind,
+          "device_busy_ms_over_unprofiled_step_ms":
+              traced_step["device_busy_ms"] / one_step_ms,
+          "adamw_update_device_ms": update_ms,
+          "seconds": time.perf_counter() - t_train, "ok": train_ok})
+    if not train_ok:
+        raise SystemExit(f"training failed: losses {first} / {resumed}, "
+                         f"launches a step {per_step}, in the run "
+                         f"{launches}")
+    return {"launches": {k: launches[k] for k in want_step},
+            "per_step": {k: per_step[k] for k in want_step}}
 
 
 def matmul_phases(cuda_ms, params) -> dict:
@@ -3783,6 +4141,15 @@ def main(argv=None) -> int:
             k["by_path"][f"paper_platform_{name}"] = {
                 "launches": counts[k["name"]]}
     kernels += lm_phases(cuda_ms, args.parent)
+    # the training slice's launches, from its own run (counts zeroed just
+    # before launch.train.main and read just after) and from one step
+    train = train_phases()
+    for k in kernels:
+        if k["name"] in train["launches"]:
+            k["by_path"] = {
+                "zamba2_serve": {"launches": k["launches"]},
+                "train": {"launches": train["launches"][k["name"]],
+                          "launches_per_step": train["per_step"][k["name"]]}}
     emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "
           "taken, whole, taken again; tries that lost primer spins, the "
           "closing spin, or a launch's device record; launches in the "

@@ -2,8 +2,8 @@
 
 The same frozen dataclasses as the reference, with dtypes kept as names
 (``"bfloat16"``, ``"float32"``) and resolved to torch dtypes by
-``ModelConfig.cdtype`` / ``pdtype``.  The port serves the architectures
-whose modules it has: ``zamba2-1.2b`` (hybrid Mamba-2 + shared attention)
+``ModelConfig.cdtype`` / ``pdtype``.  The port serves and trains the
+architectures whose modules it has: ``zamba2-1.2b`` (hybrid Mamba-2 + shared attention)
 and ``h2o-danube-1.8b`` (dense, sliding-window GQA).  Any other known
 architecture raises ``NotImplementedError``.
 """
@@ -125,9 +125,9 @@ def _module(name: str):
             f"repro_torch.configs.{_MODULES[name]}")
     if name in ARCHS:
         raise NotImplementedError(
-            f"{name!r} is not ported yet: the port serves {PORTED}; the "
-            "other families wait in ROADMAP.md §1, the module queue "
-            "(Mamba-1, MoE, VLM and enc-dec after the training slice)")
+            f"{name!r} is not ported yet: the port serves and trains "
+            f"{PORTED}; the other families (Mamba-1, MoE, VLM and enc-dec) "
+            "wait in ROADMAP.md §1, the module queue")
     raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
 
 

@@ -8,7 +8,8 @@ this module never imports the reference) and builds the port's config.
 
 For the LM stack, ``model_config_from_reference`` does the same for a
 ``ModelConfig``, ``lm_params_from_reference`` takes the reference's
-parameter pytree as numpy arrays, and
+parameter pytree as numpy arrays, ``train_state_from_reference`` its
+``TrainState`` (step, parameters, AdamW moments), and
 ``lm_quantized_params_from_reference`` its ``quantize_weights_int8``
 trees (int8 values and scales).
 """
@@ -26,6 +27,7 @@ from repro_torch.core.canny import CannyConfig
 from repro_torch.core.hough import HoughConfig
 from repro_torch.core.lines import LinesConfig
 from repro_torch.core.plan import PipelineConfig
+from repro_torch.train.state import TrainState
 
 # The reference picks among its own execution modes of one kernel with
 # ``impl``; in the port the tensor's device picks, so these all mean "the
@@ -92,6 +94,24 @@ def lm_params_from_reference(cfg: ModelConfig, params) -> dict:
                              f"{np.shape(given[path])} != {spec.shape}")
     return layers.tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)), params)
+
+
+def train_state_from_reference(cfg: ModelConfig, state) -> TrainState:
+    """The reference's ``TrainState`` (``step``, ``params``, ``opt`` with
+    moments ``m`` and ``v``; leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) as the port's, on the CPU.  The
+    parameters and both moments are checked against ``param_specs(cfg)``
+    as :func:`lm_params_from_reference` checks them; a state with
+    compression error feedback (``err``) raises, as the port has no
+    compression."""
+    if state.err is not None:
+        raise NotImplementedError("compression error feedback is not "
+                                  "ported (ROADMAP.md §1 item 7)")
+    return TrainState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        params=lm_params_from_reference(cfg, state.params),
+        opt={k: lm_params_from_reference(cfg, state.opt[k])
+             for k in ("m", "v")})
 
 
 def lm_quantized_params_from_reference(cfg: ModelConfig, qs: dict) -> dict:

@@ -1,6 +1,6 @@
 """Synthetic road frames, the scenario families with analytic ground truth,
-the drive cycles and the closed loop (numpy; the same frames as
-``repro.data`` from the same seeds)."""
+the drive cycles, the closed loop and the LM token pipeline (numpy; the
+same frames and tokens as ``repro.data`` from the same seeds)."""
 
 from .images import RoadScene, frame_stream, synthetic_road  # noqa: F401
 from .scenarios import (  # noqa: F401
@@ -20,4 +20,10 @@ from .scenarios import (  # noqa: F401
     standard_closed_loop,
     standard_drive_cycle,
     transform_rho_theta,
+)
+from .tokens import (  # noqa: F401
+    PrefetchLoader,
+    SkipAheadLoader,
+    TokenPipelineConfig,
+    TokenStream,
 )

@@ -79,9 +79,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D <= 128; all contiguous CUDA tensors of one dtype (f32, bf16 or
     f16) on one card.  ``window`` counts keys with ``q_pos - kv_pos <
     window``; ``q_offset`` is the global position of query row 0.  Ragged
-    Lq and Lkv are masked in the kernel.  Raises on anything else.
+    Lq and Lkv are masked in the kernel.  Raises on anything else, and,
+    before touching the card, on an input that requires grad while grad
+    mode is on: the output would carry no gradient.
     """
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernel writes its output through a raw pointer and "
+            "has no backward: call it through kernels.ops.flash_attention, "
+            "whose autograd Function gives the gradient, or under no_grad")
     if not q.is_cuda:
         raise ValueError("the attention kernel takes CUDA tensors; the CPU "
                          "uses kernels.ref.attention")

@@ -16,7 +16,13 @@ The LM seams, ``flash_attention`` and ``ssd_scan``, keep the reference's
 CPU dispatch (``repro/kernels/ops.py``) so that both packages take the same
 arithmetic on the host: dense attention up to a kv length of 2048 and the
 blockwise form above; the sequential SSD oracle up to L = 64 and the
-chunked form (``chunk``, default 128) above.
+chunked form (``chunk``, default 128) above.  On the card each kernel runs
+inside a ``torch.autograd.Function`` whose backward is plain PyTorch, as
+the reference's gradients are jnp: the blockwise attention backward and
+the chunked SSD form recomputed.  A backward launches no kernel; under
+``torch.utils.checkpoint`` the recomputed forward launches the kernels a
+second time.  The kernel wrappers themselves refuse an input that
+requires grad.
 
 ``tiled_matmul`` (under ``core.quantize.quantized_matmul``) drops the
 reference's ``impl`` and ``bm``/``bn``/``bk`` knobs, as ``HoughConfig``
@@ -175,14 +181,39 @@ def hough_vote(xy, weights, trig, *, n_rho: int, compact: bool = False,
 _DENSE_MAX_KV = 2048
 
 
+class _AttentionFn(torch.autograd.Function):
+    """The attention kernel with a gradient.  Forward: the kernel as it is;
+    backward: the reference's blockwise backward in plain PyTorch on the
+    same device (the reference has no Pallas backward), its lse from the
+    plain pass ``ref.attention_lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = _attn.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.masks = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.masks
+        lse = ref.attention_lse(q, k, causal=causal, window=window,
+                                q_offset=q_offset)
+        dq, dk, dv = ref.attention_blockwise_backward(
+            q, k, v, out, lse, do, causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_offset: int = 0):
     """Attention over (B, Hq, Lq, D) queries and (B, Hkv, Lkv, D) keys and
     values: causal and window masks in global positions ``q_offset + i``,
     GQA for Hq % Hkv == 0; out in q's dtype."""
     if _on_card(q):
-        return _attn.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+        return _AttentionFn.apply(q, k, v, causal, window, q_offset)
     if k.shape[2] > _DENSE_MAX_KV:
         return ref.attention_blockwise(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
@@ -195,11 +226,47 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 _SSD_SEQ_MAX = 64
 
 
+def ssd_grads(inputs, dy, dstate, *, chunk: int = 128,
+              needs=(True,) * 5):
+    """The SSD scan's gradient: ``ref.ssd_scan_chunked`` recomputed at
+    ``chunk`` on detached copies of ``inputs`` (x, dt, A, B, C), then
+    differentiated against (dy, dstate); ``dstate=None`` counts as zeros.
+    One gradient per input, None where ``needs`` says it needs none."""
+    leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+    wanted = [t for t in leaves if t.requires_grad]
+    with torch.enable_grad():
+        y, state = ref.ssd_scan_chunked(*leaves, chunk=chunk)
+        if dstate is None:
+            dstate = torch.zeros_like(state)
+        got = iter(torch.autograd.grad((y, state), wanted, (dy, dstate),
+                                       allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+class _SSDFn(torch.autograd.Function):
+    """The SSD kernel with a gradient.  Forward: the kernel as it is;
+    backward: :func:`ssd_grads`, the plain chunked form recomputed and
+    differentiated on the same device (the reference's gradient is autodiff
+    of its jnp forms; it has no Pallas backward)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return (*ssd_grads(ctx.saved_tensors, dy, dstate, chunk=ctx.chunk,
+                           needs=ctx.needs_input_grad[:5]), None)
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     """Mamba-2 SSD scan: x (b, L, H, P), dt (b, L, H), A (H,), B/C
     (b, L, G, N) -> (y (b, L, H, P), final state (b, H, N, P) f32)."""
     if _on_card(x):
-        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return _SSDFn.apply(x, dt, A, B, C, chunk)
     if x.shape[1] > _SSD_SEQ_MAX:
         return ref.ssd_scan_chunked(x, dt, A, B, C, chunk=chunk)
     return ref.ssd_scan(x, dt, A, B, C)

@@ -4,7 +4,8 @@ These are the semantics of record for the hand kernels in ``csrc/``: the
 CPU runs them (``ops`` dispatches a CPU tensor here), and ``chip_smoke.py``
 and the tests hold each kernel against them on the card.  Each one repeats
 the reference's arithmetic, not its speed.  The detection half comes
-first; the LM half (attention and the Mamba-2 SSD scan) is at the end.
+first; the LM half (attention with its blockwise backward, and the
+Mamba-2 SSD scan) is at the end.
 
 Run on the card, the matmul-based versions need TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``), or rho bins move and
@@ -340,15 +341,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         v.to(torch.float32)).to(q.dtype)
 
 
-def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int | None = None,
-                        q_offset: int = 0, block: int = 512) -> torch.Tensor:
-    """Online-softmax attention as a loop over kv blocks (forward only).
-
-    The same function as :func:`attention` with O(Lq * block) memory: the
-    reference's ``_abw_fwd_impl``, which its CPU dispatch takes above a kv
-    length of 2048.  Its backward comes with the training slice.
-    """
+def _abw_fwd_impl(q, k, v, causal, window, q_offset, block):
+    """Online softmax over kv blocks: ``(out, lse)``, the reference's
+    ``_abw_fwd_impl``.  ``v=None`` skips the output and returns ``(None,
+    lse)``.  ``lse`` (B, Hq, Lq, 1) f32 is ``m + log l``, +inf on a row
+    with no unmasked key, so that ``exp(s - lse)`` is 0 there."""
     B, Hq, Lq, D = q.shape
     Hkv, Lkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -356,7 +353,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = (-Lkv) % block
     if pad:
         k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
+        v = None if v is None else F.pad(v, (0, 0, 0, pad))
     n_blocks = k.shape[2] // block
     dev = q.device
     qf = q.to(torch.float32)
@@ -367,7 +364,6 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j in range(n_blocks):
         sl = slice(j * block, (j + 1) * block)
         kb = k[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
-        vb = v[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
         kv_pos = j * block + torch.arange(block, device=dev)
         mask = _attention_mask(q_pos, kv_pos, Lkv, causal, window)
@@ -377,9 +373,107 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(mask, torch.exp(s - m_safe), 0.0)
         corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
         l = corr * l + p.sum(dim=-1, keepdim=True)
-        acc = corr * acc + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        if v is not None:
+            vb = v[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
+            acc = corr * acc + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
-    return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+    empty = l == 0.0
+    lse = torch.where(empty, float("inf"),
+                      torch.where(torch.isinf(m), 0.0, m)
+                      + torch.log(torch.where(empty, 1.0, l)))
+    if v is None:
+        return None, lse
+    return (acc / torch.where(empty, 1.0, l)).to(q.dtype), lse
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, q_offset: int = 0,
+                  block: int = 512) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled, masked scores, (B, Hq,
+    Lq, 1) f32 (+inf on a row with no unmasked key): the statistic the
+    attention backward needs beside the output, computed over kv blocks as
+    :func:`attention_blockwise` computes it, without v."""
+    return _abw_fwd_impl(q, k, None, causal, window, q_offset, block)[1]
+
+
+def attention_blockwise_backward(q, k, v, out, lse, do, *, causal=True,
+                                 window=None, q_offset=0, block=512):
+    """The reference's flash-style backward (``_abw_bwd``): each block's p
+    recomputed from (q, k, lse), ``delta = rowsum(do * out)``, GQA folded
+    by summing the query heads that share a kv head.  Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    pad = (-Lkv) % block
+    kp, vp = k, v
+    if pad:
+        kp = F.pad(k, (0, 0, 0, pad))
+        vp = F.pad(v, (0, 0, 0, pad))
+    n_blocks = kp.shape[2] // block
+    dev = q.device
+    qf = q.to(torch.float32)
+    dof = do.to(torch.float32)
+    q_pos = q_offset + torch.arange(Lq, device=dev)
+    delta = (dof * out.to(torch.float32)).sum(dim=-1, keepdim=True)
+    dq = torch.zeros((B, Hq, Lq, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for j in range(n_blocks):
+        sl = slice(j * block, (j + 1) * block)
+        kb = kp[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
+        vb = vp[:, :, sl].repeat_interleave(rep, dim=1).to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        kv_pos = j * block + torch.arange(block, device=dev)
+        mask = _attention_mask(q_pos, kv_pos, Lkv, causal, window)
+        s = s.masked_fill(~mask, float("-inf"))
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dv_j = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vb)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dk_j = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+        dks.append(dk_j.reshape(B, Hkv, rep, block, D).sum(dim=2))
+        dvs.append(dv_j.reshape(B, Hkv, rep, block, D).sum(dim=2))
+    dk = torch.cat(dks, dim=2)[:, :, :Lkv]
+    dv = torch.cat(dvs, dim=2)[:, :, :Lkv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """:func:`attention_blockwise` with the reference's ``custom_vjp``: the
+    forward keeps (q, k, v, out, lse), the backward recomputes each
+    block's p (:func:`attention_blockwise_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block):
+        out, lse = _abw_fwd_impl(q, k, v, causal, window, q_offset, block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, q_offset, block)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset, block = ctx.masks
+        dq, dk, dv = attention_blockwise_backward(
+            q, k, v, out, lse, do, causal=causal, window=window,
+            q_offset=q_offset, block=block)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, block: int = 512) -> torch.Tensor:
+    """Online-softmax attention as a loop over kv blocks.
+
+    The same function as :func:`attention` with O(Lq * block) memory: the
+    reference's ``attention_blockwise``, which its CPU dispatch takes above
+    a kv length of 2048, with its flash-style backward (the residuals are
+    q, k, v, out and lse; each block's p is recomputed).
+    """
+    return _BlockwiseAttention.apply(q, k, v, causal, window, q_offset,
+                                     block)
 
 
 def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int = 128):
@@ -389,6 +483,12 @@ def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int = 128):
     x (b, L, H, P), dt (b, L, H), A (H,), B/C (b, L, G, N).  Returns y in
     x's dtype and the final state (b, H, N, P) f32.  The ragged tail is
     padded with identity steps (zero x-contribution, zero log-decay).
+
+    The decay between two steps is masked above the diagonal before its
+    ``exp`` (the reference masks after it): the values are the same, and
+    the gradient stays finite where a chunk's summed decay passes ~88 and
+    the masked ``exp`` overflows, which makes the reference's gradient NaN
+    (ROADMAP.md §3).
     """
     batch, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -416,8 +516,8 @@ def ssd_scan_chunked(x, dt, A, B, C, *, chunk: int = 128):
         Ch = Cf[:, sl].repeat_interleave(rep, dim=2)
         cum = torch.cumsum(lc, dim=1)                      # (b, Q, H)
         cb = torch.einsum("bqhn,bkhn->bhqk", Ch, Bh)
-        seg = torch.exp(cum[:, :, None] - cum[:, None, :])  # (b, Q, Q, H)
-        seg = torch.where(tril, seg.permute(0, 3, 1, 2), 0.0)
+        diff = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
+        seg = torch.exp(diff.masked_fill(~tril, float("-inf")))  # (b,H,Q,Q)
         y = torch.einsum("bhqk,bkhp->bqhp", cb * seg, xc)
         y = y + torch.einsum("bqhn,bhnp->bqhp", Ch, h) * torch.exp(
             cum)[..., None]

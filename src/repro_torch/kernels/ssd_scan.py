@@ -101,9 +101,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x (b, L, H, P), dt (b, L, H), A (H,), B and C (b, L, G, N), all f32
     CUDA tensors on one card, H % G == 0, N and P multiples of 4.  The
     chunk is ``min(chunk, L)`` steps, at most 128.  Returns y (b, L, H, P)
-    f32 and the final state (b, H, N, P) f32.  Raises on anything else.
+    f32 and the final state (b, H, N, P) f32.  Raises on anything else, and,
+    before touching the card, on an input that requires grad while grad
+    mode is on: the outputs would carry no gradient.
     """
     global launches
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "the SSD kernel writes its outputs through raw pointers and has "
+            "no backward: call it through kernels.ops.ssd_scan, whose "
+            "autograd Function gives the gradient, or under no_grad")
     if not x.is_cuda:
         raise ValueError("the SSD kernel takes CUDA tensors; the CPU uses "
                          "kernels.ref.ssd_scan / ssd_scan_chunked")

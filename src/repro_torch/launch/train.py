@@ -1,0 +1,147 @@
+"""Training driver: the train loop with checkpoints and resume
+(``repro/launch/train.py``, plus ``--device``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --preset smoke --steps 100 --ckpt /path/to/ckpt --device cpu
+
+The default arch is zamba2-1.2b, as in ``launch/serve.py`` (the
+reference's default, yi-9b, is not ported); ``--arch h2o-danube-1.8b``
+trains the dense family.  It runs on the card unless ``--device cpu``.
+Parameters are drawn from seed 0 in the param dtype (the f32 master), the
+step-indexed token pipeline feeds the device through a prefetch thread,
+and checkpoints are written asynchronously every ``--ckpt-every`` steps
+and once at the end, unless the last one already holds that step.  With
+``--resume`` the loop restarts from the latest checkpoint under
+``--ckpt``.  ``--compress-pod`` (int8 error-feedback compression of a
+multi-pod gradient reduction) waits with ``sharding/`` in ROADMAP.md §1
+item 7.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager, latest_step
+from repro_torch.configs import ModelConfig, get, get_smoke
+from repro_torch.data import PrefetchLoader, TokenPipelineConfig, TokenStream
+from repro_torch.models import build
+from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+
+def preset_config(arch: str, preset: str) -> ModelConfig:
+    if preset == "full":
+        return get(arch)
+    cfg = get_smoke(arch)
+    if preset == "100m":
+        # ~100M params in the arch's family shape
+        return cfg.replace(
+            n_layers=max(4, cfg.n_layers), d_model=512,
+            n_heads=8, n_kv_heads=max(1, min(8, cfg.n_kv_heads or 8)),
+            d_ff=2048, vocab=8192, remat=False,
+        )
+    return cfg
+
+
+def optimizer_config(args: argparse.Namespace) -> AdamWConfig:
+    """The reference CLI's schedule: warmup over 1/20 of the steps (at
+    least 5), cosine decay to the last step."""
+    return AdamWConfig(peak_lr=args.lr,
+                       warmup_steps=max(args.steps // 20, 5),
+                       decay_steps=args.steps)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--preset", default="smoke",
+                    choices=["smoke", "100m", "full"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--compress-pod", action="store_true",
+                    help="int8 error-feedback cross-pod grad reduction "
+                         "(not ported: ROADMAP.md §1 item 7)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the loop; returns (final TrainState, the logged steps: step,
+    loss, lr, grad_norm, tok_per_s, and ms_per_step since the previous
+    logged step, on the host clock, each logged step read back)."""
+    args = parse_args(argv)
+    if args.compress_pod:
+        raise NotImplementedError(
+            "--compress-pod needs a multi-pod mesh: the pod-compressed step "
+            "and train/compression.py wait with sharding/ in ROADMAP.md §1 "
+            "item 7")
+    cfg = preset_config(args.arch, args.preset)
+    model = build(cfg, device=args.device)
+    dev = model.device
+    print(f"arch={args.arch} preset={args.preset} "
+          f"params={model.param_count()/1e6:.1f}M device={dev}", flush=True)
+    opt = optimizer_config(args)
+    state = init_train_state(
+        model.init_master(torch.Generator(dev).manual_seed(0)))
+    step_fn = make_train_step(model, opt, n_micro=args.n_micro)
+
+    mgr = CheckpointManager(args.ckpt) if args.ckpt else None
+    start, saved = 0, None            # saved: the step the store holds
+    if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
+        state = mgr.restore_latest(state)
+        start = saved = int(state.step)
+        print(f"resumed from step {start}", flush=True)
+
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    loader = PrefetchLoader(stream, depth=2, start_step=start)
+    history = []
+    t0 = t_last = time.perf_counter()
+    i_last = start
+    tokens_seen = 0
+    try:
+        for i in range(start, args.steps):
+            _, batch = loader.get()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            state, metrics = step_fn(state, batch)
+            tokens_seen += args.global_batch * args.seq
+            if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+                loss = float(metrics["loss"])
+                now = time.perf_counter()
+                rec = {"step": i + 1, "loss": loss,
+                       "lr": float(metrics["lr"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "tok_per_s": tokens_seen / (now - t0),
+                       "ms_per_step": (now - t_last) * 1e3 / (i + 1 - i_last)}
+                t_last, i_last = now, i + 1
+                history.append(rec)
+                print(f"step {i+1:5d}  loss {loss:7.4f}  "
+                      f"lr {rec['lr']:.2e}  "
+                      f"grad_norm {rec['grad_norm']:.3f}  "
+                      f"{rec['tok_per_s']:,.0f} tok/s", flush=True)
+            if mgr and (i + 1) % args.ckpt_every == 0:
+                mgr.save_async(state, i + 1)
+                saved = i + 1
+    finally:
+        loader.close()
+        if mgr:
+            final = int(state.step)
+            if saved == final:
+                mgr.wait()
+            else:
+                mgr.save_sync(state, final)
+    return state, history
+
+
+if __name__ == "__main__":
+    main()

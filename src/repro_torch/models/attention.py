@@ -1,7 +1,8 @@
 """Self-attention for prefill and decode (``repro/models/attention.py``).
 
-Prefill goes through ``kernels.ops.flash_attention`` (the hand kernel on
-the card, the plain oracle on the CPU).  Decode is one query a request: a
+Training (:func:`self_attention`, no cache) and prefill go through
+``kernels.ops.flash_attention`` (the hand kernel on the card, with a plain
+backward; the plain oracle on the CPU).  Decode is one query a request: a
 dense masked product against the cache, in the cache's storage dtype
 with f32 results, for two cache layouts:
 
@@ -89,7 +90,23 @@ def _write_at(cache_kv: torch.Tensor, new: torch.Tensor,
     cache_kv[rows, :, idx] = new.transpose(1, 2).to(cache_kv.dtype)
 
 
-# --- prefill and decode -------------------------------------------------------
+# --- training, prefill and decode ------------------------------------------------
+
+def self_attention(params, x, cfg, *, positions=None, causal: bool = True):
+    """Full-sequence attention with no cache (the train path): x (B, S, D)
+    -> (B, S, D), RoPE at ``positions`` (default ``0 .. S-1``), the window
+    from ``cfg.window``."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q = apply_rope(_proj_q(params, x), positions, cfg.rope_theta)
+    k, v = _proj_kv(params, x)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, window=cfg.window)
+    return _proj_out(params, out.transpose(1, 2), x.dtype)
+
 
 def prefill_attention(params, x, cfg, cache, *, positions) -> tuple:
     """Causal attention over the whole prompt that also fills the cache

@@ -1,12 +1,14 @@
 """Public model API (``repro/models/model_zoo.py``): ``build(cfg, device=)``
-gives a ``Model`` with ``init``, ``param_count``, ``init_cache``,
-``prefill`` and ``decode_step``.
+gives a ``Model`` with ``init``, ``init_master``, ``param_count``,
+``forward``, ``loss``, ``init_cache``, ``prefill`` and ``decode_step``.
 
 A ``Model`` runs on one device, the card unless the caller names the CPU
-(``repro_torch.device``).  Its parameters are a nested dict of tensors in
-the compute dtype on that device: ``init`` draws them from a
+(``repro_torch.device``).  Its serving parameters are a nested dict of
+tensors in the compute dtype on that device: ``init`` draws them from a
 ``torch.Generator`` and ``load`` takes the reference's (or any) f32
-parameters across, each cast once.
+parameters across, each cast once.  Training keeps the parameters in the
+param dtype (the f32 master, ``init_master``); ``forward`` and ``loss``
+cast them on every call, as the reference does.
 """
 
 from __future__ import annotations
@@ -35,6 +37,12 @@ class Model:
         return layers.materialize(generator, self.param_specs,
                                   device=self.device, dtype=self.cfg.cdtype)
 
+    def init_master(self, generator: torch.Generator) -> Any:
+        """Parameters drawn from ``generator`` as :meth:`init` draws them,
+        kept in the param dtype (the f32 master that training updates)."""
+        return layers.materialize(generator, self.param_specs,
+                                  device=self.device)
+
     def load(self, params: Any) -> Any:
         """``params`` on the model's device in the compute dtype: the one
         cast the port makes (leaves already there are kept, not copied)."""
@@ -45,6 +53,14 @@ class Model:
         return layers.param_count(self.param_specs)
 
     # ---- compute ----------------------------------------------------
+    def forward(self, params, batch) -> torch.Tensor:
+        """Teacher-forced logits (B, S, vocab) f32."""
+        return transformer.forward(params, batch, self.cfg)[0]
+
+    def loss(self, params, batch):
+        """(loss, {"ce", "moe_aux"}) of ``transformer.loss_fn``."""
+        return transformer.loss_fn(params, batch, self.cfg)
+
     def prefill(self, params, batch, cache, *, positions=None):
         return transformer.prefill(params, batch, self.cfg, cache,
                                    positions=positions)

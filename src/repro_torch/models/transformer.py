@@ -13,10 +13,13 @@ stacked leaves.  Sub-block kinds of the ported families:
 
 Patterns: dense ``("attn", "mlp") x n_layers``; hybrid ``("mamba2",) x
 share_every [+ shared block] x n_super`` plus a tail without the shared
-block.  Two modes: prefill (the whole prompt, fills the caches from the
-request offsets) and decode (one token per request at per-request
-positions).  Caches are updated in place.  Teacher-forced ``forward`` and
-the loss wait for the training slice.
+block.  Three modes share the sub-block code: train (the whole sequence,
+no cache: ``forward_hidden``, ``forward``, ``loss_fn``), prefill (the
+whole prompt, fills the caches from the request offsets) and decode (one
+token per request at per-request positions).  Caches are updated in
+place.  In training each stacked leaf is unbound once a call, and with
+``cfg.remat`` each superblock runs under ``torch.utils.checkpoint``
+(recomputed in the backward), as the reference remats each scan step.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import layers
@@ -104,10 +109,15 @@ def _layer(tree: Any, i: int) -> Any:
 # --- sub-block application ---------------------------------------------------
 
 def _apply_block(kind: str, bp, x, cfg, ctx, cache):
-    """One sub-block; its cache entry (views) is updated in place."""
+    """One sub-block; its cache entry (views) is updated in place.  In the
+    train mode there is no cache (``cache`` is None)."""
     h = layers.apply_norm(bp["norm"], x, cfg.norm, cfg.norm_eps)
+    train = ctx["mode"] == "train"
     if kind == "attn":
-        if ctx["mode"] == "prefill":
+        if train:
+            y = attn.self_attention(bp["attn"], h, cfg,
+                                    positions=ctx["positions"], causal=True)
+        elif ctx["mode"] == "prefill":
             y, _ = attn.prefill_attention(bp["attn"], h, cfg, cache,
                                           positions=ctx["positions"])
         else:
@@ -119,8 +129,9 @@ def _apply_block(kind: str, bp, x, cfg, ctx, cache):
     if kind == "mamba2":
         state = cache if ctx["mode"] == "decode" else None
         y, new_state = ssm_lib.mamba2_forward(bp["ssm"], h, cfg, state=state)
-        cache["conv"].copy_(new_state["conv"])
-        cache["ssm"].copy_(new_state["ssm"])
+        if not train:
+            cache["conv"].copy_(new_state["conv"])
+            cache["ssm"].copy_(new_state["ssm"])
         return x + y
     raise NotImplementedError(f"sub-block {kind!r} is not ported")
 
@@ -129,7 +140,10 @@ def _apply_shared_attn(sp, x, cfg, ctx, cache):
     """Zamba2 tied transformer block (attention + MLP), own cache entry."""
     sc = _shared_attn_cfg(cfg)
     h = layers.apply_norm(sp["norm"], x, cfg.norm, cfg.norm_eps)
-    if ctx["mode"] == "prefill":
+    if ctx["mode"] == "train":
+        y = attn.self_attention(sp["attn"], h, sc,
+                                positions=ctx["positions"], causal=True)
+    elif ctx["mode"] == "prefill":
         y, _ = attn.prefill_attention(sp["attn"], h, sc, cache,
                                       positions=ctx["positions"])
     else:
@@ -154,6 +168,35 @@ def _run_stack(cfg, x, stacked_params, stacked_cache, ctx, pattern, n,
         if shared_params is not None:
             x = _apply_shared_attn(shared_params, x, cfg, ctx,
                                    _layer(stacked_cache["shared"], i))
+    return x
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` layers of a stacked tree, every leaf unbound once: the
+    backward of ``unbind`` is one ``stack``, where indexing each layer
+    (:func:`_layer`) would add a zero-filled gradient of the whole stacked
+    leaf a layer."""
+    rows = layers.tree_map(lambda t: t.unbind(0), tree)
+    return [layers.tree_map(lambda r: r[i], rows) for i in range(n)]
+
+
+def _train_stack(cfg, x, stacked_params, ctx, pattern, n,
+                 shared_params=None):
+    """The superblocks of one stack in the train mode, each under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set: only its input
+    is kept, and its forward runs again in the backward."""
+    def superblock(x, bp):
+        for j, kind in enumerate(pattern):
+            x = _apply_block(kind, bp[f"{j}_{kind}"], x, cfg, ctx, None)
+        if shared_params is not None:
+            x = _apply_shared_attn(shared_params, x, cfg, ctx, None)
+        return x
+
+    for bp in _unstack(stacked_params, n):
+        if cfg.remat:
+            x = checkpoint(superblock, x, bp, use_reentrant=False)
+        else:
+            x = superblock(x, bp)
     return x
 
 
@@ -200,9 +243,11 @@ def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
 
 def cast_params(params, cfg):
     """The compute-dtype view of the parameters.  The reference casts on
-    every call; the port casts once, when the model is built or loaded
-    (``Model.load``), so here ``.to`` finds each leaf in the compute dtype
-    already and returns it as it is, with no copy."""
+    every call.  For serving the port casts once, when the model is built
+    or loaded (``Model.load``), so here ``.to`` finds each leaf in the
+    compute dtype already and returns it as it is, with no copy; in
+    training the leaves are the f32 master and ``.to`` is the
+    differentiable cast, made on every call as the reference makes it."""
     return layers.tree_map(
         lambda p: p.to(cfg.cdtype) if p.is_floating_point() else p, params)
 
@@ -241,3 +286,64 @@ def decode_step(params, token, cfg, cache, pos, *, ring: bool = False):
     x = _stacks(params, cache, cfg, x, ctx)
     logits = layers.logits_out(params["embed"], x)
     return logits[:, 0], cache
+
+
+def forward_hidden(params, batch_inputs, cfg):
+    """Final hidden states (B, S, D) before the unembedding, and the aux
+    metrics (``moe_aux`` is 0: no ported family has experts)."""
+    params = cast_params(params, cfg)
+    tokens = batch_inputs["tokens"]
+    B, S = tokens.shape
+    pattern, n_super, tail, n_tail = pattern_for(cfg)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
+    ctx = {"mode": "train", "positions": positions}
+    x = _train_stack(cfg, x, params["blocks"], ctx, pattern, n_super,
+                     params.get("shared"))
+    if n_tail:
+        x = _train_stack(cfg, x, params["tail"], ctx, tail, n_tail)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return x, {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                      device=x.device)}
+
+
+def forward(params, batch_inputs, cfg):
+    """Teacher-forced logits (B, S, vocab f32) and the aux metrics."""
+    x, aux = forward_hidden(params, batch_inputs, cfg)
+    return layers.logits_out(params["embed"], x), aux
+
+
+# --- loss -------------------------------------------------------------------------
+
+def _ce_chunks(S: int, target: int = 8) -> int:
+    """Largest divisor of S that is <= target (keeps seq chunks exact)."""
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def loss_fn(params, batch, cfg, *, aux_coef: float = 0.01,
+            ce_chunks: int = 8):
+    """Next-token cross-entropy, computed in ``_ce_chunks`` sequence chunks
+    (the unembedding is the largest activation of a step), masked by
+    ``batch["loss_mask"]`` when given.  Returns (loss + aux_coef * moe_aux,
+    {"ce", "moe_aux"})."""
+    x, aux = forward_hidden(params, batch, cfg)
+    targets = batch["targets"]
+    B, S = targets.shape
+    mask = batch.get("loss_mask")
+    mask = (torch.ones((B, S), dtype=torch.float32, device=x.device)
+            if mask is None else mask.to(torch.float32))
+    nc = _ce_chunks(S, ce_chunks)
+    Q = S // nc
+    total_nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        logits = layers.logits_out(params["embed"], x[:, sl])
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[:, sl, None].to(torch.int64))[..., 0]
+        total_nll = total_nll + (nll * mask[:, sl]).sum()
+    loss = total_nll / mask.sum().clamp_min(1.0)
+    return loss + aux_coef * aux["moe_aux"], {"ce": loss,
+                                               "moe_aux": aux["moe_aux"]}

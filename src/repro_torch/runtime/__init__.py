@@ -1,6 +1,6 @@
-"""Fault-tolerant runtime: heartbeats, worker failures, fault injection
-(``repro/runtime``, without ``run_with_restarts``, which waits for a
-checkpoint store)."""
+"""Fault-tolerant runtime (``repro/runtime``): heartbeats, worker failures
+and fault injection.  The restart loop, ``run_with_restarts``, is in
+``runtime.supervisor`` beside them; the package does not re-export it."""
 
 from .faults import ServiceFaultInjector  # noqa: F401
 from .heartbeat import Heartbeat, HeartbeatMonitor  # noqa: F401

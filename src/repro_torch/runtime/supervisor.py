@@ -1,15 +1,24 @@
-"""Worker-failure signalling (``repro/runtime/supervisor.py``).
+"""Restart supervision (``repro/runtime/supervisor.py``): checkpoint and
+restart with bounded retries.
 
 ``WorkerFailure`` is the error a dead worker surfaces (the detection
-service's prefetch stager raises it on an injected or real thread death);
-``FaultInjector`` is the step-indexed schedule that raises it.  The
-reference's ``run_with_restarts`` (checkpoint / restart supervision)
-needs a checkpoint store and comes with the training slice.
+service's prefetch stager raises it on an injected or real thread death,
+a training step on a lost worker); ``FaultInjector`` is the step-indexed
+schedule that raises it.  ``run_with_restarts`` drives a step function
+under that fault model: a ``WorkerFailure`` rolls the loop back to the
+last checkpoint of the port's store and goes on, up to ``max_restarts``.
+The step function receives the restored state and the step index to
+resume from, so with the step-indexed token pipeline the trajectory after
+a restart is the uninterrupted one, bit for bit.  A restore places each
+leaf on the device of the current state's leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
+
+from repro_torch.checkpoint import CheckpointManager, latest_step
 
 
 class WorkerFailure(RuntimeError):
@@ -27,3 +36,42 @@ class FaultInjector:
         if step in self.fail_at_steps and step not in self._fired:
             self._fired.add(step)
             raise WorkerFailure(f"injected failure at step {step}")
+
+
+def run_with_restarts(
+    *,
+    init_state: Any,
+    step_fn: Callable[[Any, int], Any],     # (state, step) -> state
+    n_steps: int,
+    ckpt: CheckpointManager,
+    ckpt_every: int = 10,
+    max_restarts: int = 3,
+) -> tuple[Any, dict]:
+    """Returns (final_state, stats {restarts, completed_steps,
+    resumed_from})."""
+    state = init_state
+    step = 0
+    restarts = 0
+    resumed_from: list[int] = []
+    ckpt.save_sync(state, step)
+
+    while step < n_steps:
+        try:
+            state = step_fn(state, step)
+            step += 1
+            if step % ckpt_every == 0:
+                ckpt.save_async(state, step)
+        except WorkerFailure:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            ckpt.wait()
+            state = ckpt.restore_latest(state)
+            step = latest_step(ckpt.directory)
+            resumed_from.append(step)
+    ckpt.wait()
+    return state, {
+        "restarts": restarts,
+        "completed_steps": step,
+        "resumed_from": resumed_from,
+    }

@@ -1,0 +1,99 @@
+"""Train- and eval-step builders (``repro/train/trainer.py``).
+
+``make_train_step(model, opt_cfg, n_micro=)`` returns a pure
+``(state, batch) -> (state, metrics)``: the loss and the gradient of every
+parameter leaf (``torch.autograd.grad`` on detached copies, so the state's
+tensors never require grad), accumulated over ``n_micro`` microbatches
+(the batch split along its rows, the gradients summed in f32 and scaled
+by ``1 / n_micro``), then one AdamW update.  Every metric is a device
+tensor; the step reads nothing back to the host.  The pod-compressed step
+(``make_train_step_pod_compressed``) needs a multi-pod mesh and waits
+with ``sharding/`` (ROADMAP.md §1 item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models.layers import tree_map
+
+from .optim import AdamWConfig, adamw_update
+from .state import TrainState
+
+
+def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """(B, ...) -> n batches of B/n rows, in order."""
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch leaf {k!r} has {x.shape[0]} rows, not "
+                             f"a multiple of n_micro={n}")
+    return [{k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, metrics, grads) of ``loss_fn(params, batch)``, detached; a
+    leaf the loss does not reach gets a zero gradient."""
+    flat = []
+
+    def leaf(p):
+        flat.append(p.detach().requires_grad_())
+        return flat[-1]
+
+    leaves = tree_map(leaf, params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(leaves, batch)
+        grads = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                         materialize_grads=True))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), leaves))
+
+
+def _mean_grads(loss_fn, params, batch, n_micro: int):
+    """Accumulated (loss, metrics, grads) over ``n_micro`` microbatches."""
+    if n_micro <= 1:
+        return _value_and_grad(loss_fn, params, batch)
+    loss = None
+    for mb in _split_microbatches(batch, n_micro):
+        l_i, m_i, g_i = _value_and_grad(loss_fn, params, mb)
+        if loss is None:
+            loss = torch.zeros((), dtype=torch.float32, device=l_i.device)
+            metrics = {k: torch.zeros_like(v) for k, v in m_i.items()}
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+        loss = loss + l_i
+        metrics = {k: metrics[k] + m_i[k] for k in metrics}
+        grads = tree_map(torch.add, grads, g_i)
+    inv = 1.0 / n_micro
+    return (loss * inv, {k: m * inv for k, m in metrics.items()},
+            tree_map(lambda g: g * inv, grads))
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, *, n_micro: int = 1
+                    ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
+    """``(state, batch) -> (state, metrics)`` with metrics ``ce``,
+    ``moe_aux``, ``grad_norm``, ``lr`` and ``loss`` (device tensors)."""
+
+    def train_step(state: TrainState, batch: dict):
+        loss, metrics, grads = _mean_grads(model.loss, state.params, batch,
+                                           n_micro)
+        new_params, new_opt, opt_metrics = adamw_update(
+            grads, state.opt, state.params, state.step, opt_cfg)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return TrainState(state.step + 1, new_params, new_opt,
+                          state.err), metrics
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable[[Any, Any], dict]:
+    """``(params, batch) -> {"ce", "moe_aux", "loss"}``, with no graph."""
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, metrics = model.loss(params, batch)
+        return {**metrics, "loss": loss}
+
+    return eval_step
