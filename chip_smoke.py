@@ -96,7 +96,23 @@ on the card against the port's CPU (``train_vs_cpu``); and
 8 steps of 8 x 512 tokens with a checkpoint at step 4 and a ``--resume``
 from it (``train``): losses, ms a warm step, tokens/s, peak memory, each
 kernel's launches a step (twice the forward's with remat) and one step
-traced.
+traced, and the two LM kernels' forward launch at the step's shapes
+beside their bounds (``train_shape_times``).
+
+The remaining dense families and Mamba-1 (``lm_family_phases``):
+yi-9b (48 layers), granite-34b (88), qwen1.5-32b (60 of 64) and
+falcon-mamba-7b (64), each at full width in bf16 with seed-0 weights drawn
+on the card, serving the LM traffic through ``Engine(n_slots=4,
+max_len=1152)`` (prefill ms by length, decode ms a step, tokens/s, peak
+memory, attention launches a prefill and a decode step, finite logits,
+decode logits against fresh prefills of the same tokens, falcon's again
+in f32); each at full width cut to 2 layers, f32, served on the card and
+the CPU from the same parameters (equal tokens, logits within 1e-4 of
+max|logit|); the
+attention kernel at each dense arch's head geometry (D = 128; GQA 32/4,
+MQA 48/1, MHA 40/40) and the prefill buckets' lengths held against the
+plain version under the bf16 rule and timed beside SDPA and the bound;
+one layer of falcon's plain Mamba-1 scan traced.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -548,6 +564,179 @@ SERVE_PROMPTS = (97, 128, 200, 255, 384, 513, 777, 1000)
 SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 32, 4, 1152
 
 
+class Probe:
+    """The model, with the launch counts zeroed just before each prefill
+    and decode step and read just after (host clock, to synchronize on the
+    card, around each), and each active slot's decode logits."""
+
+    def __init__(self, m):
+        self.m, self.engine = m, None
+        self.prefills, self.decodes, self.logits = [], [], {}
+
+    def __getattr__(self, name):
+        return getattr(self.m, name)
+
+    def _timed(self, fn):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        def sync():
+            if self.m.device.type == "cuda":
+                torch.cuda.synchronize()
+
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+    def prefill(self, params, batch, cache, *, positions=None):
+        import torch
+
+        out, ms, counts = self._timed(lambda: self.m.prefill(
+            params, batch, cache, positions=positions))
+        self.prefills.append({
+            "tokens": int(batch["tokens"].shape[1]), "ms": ms,
+            "launches": counts,
+            "finite": bool(torch.isfinite(out[0]).all())})
+        return out
+
+    def decode_step(self, params, token, cache, pos, *, ring=False):
+        import torch
+
+        active = [(i, r) for i, r in enumerate(self.engine.slots) if r]
+        out, ms, counts = self._timed(lambda: self.m.decode_step(
+            params, token, cache, pos, ring=ring))
+        lg = out[0]
+        self.decodes.append({
+            "active": len(active), "ms": ms, "launches": counts,
+            "finite": bool(torch.isfinite(lg[[i for i, _ in active]])
+                           .all())})
+        for i, r in active:
+            self.logits[(r.uid, len(r.output))] = lg[i].float().cpu()
+        return out
+
+
+def serve_traffic(model, params, prompts, new_tokens, *,
+                  n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, device="cuda",
+                  **engine_kw):
+    """One Engine run of the traffic through a ``Probe``: (probe, engine,
+    requests, seconds on the host clock to synchronize)."""
+    import torch
+
+    from repro_torch.serve import Engine, Request
+
+    on_card = torch.device(device).type == "cuda"
+    probe = Probe(model)
+    eng = Engine(probe, params, n_slots=n_slots, max_len=max_len,
+                 device=device, **engine_kw)
+    probe.engine = eng
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    if on_card:
+        torch.cuda.synchronize()
+    return probe, eng, reqs, time.perf_counter() - t0
+
+
+def launch_faults(probe, per_prefill):
+    """Prefills whose launches differ from ``per_prefill`` (every other
+    kernel 0), and decode steps that launched any kernel."""
+    bad_p = [c for c in probe.prefills
+             if c["launches"] != {**{k: 0 for k in c["launches"]},
+                                  **per_prefill}]
+    return bad_p, [c for c in probe.decodes if any(c["launches"].values())]
+
+
+def mean_row(rows) -> dict:
+    """The mean of timing rows' ms, plain_ms, bound_ms and library_ms
+    (None if a row has none); bound by bytes if every row is."""
+    out = {k: sum(r[k] for r in rows) / len(rows)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in rows]
+    out["library_ms"] = None if None in lib else sum(lib) / len(lib)
+    out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                      for r in rows) else "operations")
+    return out
+
+
+def attention_bound(B, Hq, Hkv, L, D, itemsize, ops_per_s):
+    """``bound_ms`` of causal self-attention over L positions: q, k, v read
+    and the output written once; 4 * D FLOP for each unmasked (q, k)
+    pair at ``ops_per_s``."""
+    pairs = L * (L + 1) // 2
+    return bound_ms(itemsize * B * L * D * (2 * Hq + 2 * Hkv),
+                    B * Hq * pairs * 4.0 * D, ops_per_s)
+
+
+def bf16_rule(got, want, v) -> tuple:
+    """The bf16 attention rule: every element of ``got`` within one bf16
+    ulp of the larger of the two magnitudes plus 1e-5 of max|v| of
+    ``want`` (both round an f32 value once; the f32 values differ by their
+    summation order).  Returns (ok, max abs error, elements past 1 ulp)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    tol = ulp + 1e-5 * float(v.float().abs().max())
+    return bool((d <= tol).all()), float(d.max()), int((d > ulp).sum())
+
+
+def teacher_forced(model, params, probe, reqs) -> dict:
+    """Each request's decode-path logits at its first, middle and last
+    step (as ``probe`` logged them in the Engine's run) against a fresh
+    prefill of the same tokens at their exact length, on the model's
+    device: the largest difference, the largest |logit|, the largest
+    ||decode - prefill|| / ||prefill|| and the steps whose argmax agrees."""
+    import torch
+
+    err = scale = rel = 0.0
+    agree = n = 0
+    for r in reqs:
+        seq = r.prompt + r.output
+        for k in (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1):
+            lg, _ = model.prefill(
+                params, {"tokens": torch.tensor(
+                    [seq[:len(r.prompt) + k]], device=model.device)},
+                model.init_cache(1, SERVE_MAX_LEN))
+            want, got = lg[0].float().cpu(), probe.logits[(r.uid, k)]
+            err = max(err, float((want - got).abs().max()))
+            scale = max(scale, float(want.abs().max()))
+            rel = max(rel, float((want - got).norm() / want.norm()))
+            agree += int(want.argmax() == got.argmax())
+            n += 1
+    return {"max_abs_err": err, "max_abs_logit": scale, "max_rel_l2": rel,
+            "top1_agree": agree, "compared": n}
+
+
+def ssd_work(b, L, H, P, N, G, chunk=128):
+    """The SSD scan's work for x (b, L, H, P), B and C (b, L, G, N), f32:
+    (FLOP, FLOP with C B^T charged to every head, bytes).  The chunks'
+    products are counted on their lower triangles, C B^T once per group
+    (G r(r+1) N + H r(r+1) P + 4 H r N P a chunk of r real rows), plus x *
+    dt; the bytes read x, dt, A, B, C and write y and the state once."""
+    flops = flops_per_head = 0.0
+    for c0 in range(0, L, chunk):
+        r = min(chunk, L - c0)
+        flops += (G * r * (r + 1) * N + H * r * (r + 1) * P
+                  + 4.0 * H * r * N * P)
+        flops_per_head += H * (r * (r + 1) * (N + P) + 4.0 * r * N * P)
+    flops += L * H * P                            # x * dt
+    flops_per_head += L * H * P
+    n_bytes = 4 * (b * (2 * L * H * P + L * H + 2 * L * G * N + H * N * P)
+                   + H)
+    return b * flops, b * flops_per_head, n_bytes
+
+
 def lm_phases(cuda_ms, parent=None) -> list:
     """The LM serving slice: zamba2-1.2b through the continuous-batching
     Engine, both LM kernels against their plain versions on the card, a
@@ -599,6 +788,11 @@ def lm_phases(cuda_ms, parent=None) -> list:
                    ((2, 4, 2, 100, 100, 64), True, 24, 0, f32, 1.0),
                    ((1, 4, 4, 37, 37, 16), False, None, 0, f32, 1.0),
                    ((1, 4, 1, 3, 200, 128), True, None, 197, f32, 1.0)]
+    # the families' prefill geometry at D = 128 (lm_family_phases): yi-9b
+    # GQA 32/4, granite-34b MQA 48/1, qwen1.5-32b MHA 40/40
+    attn_cases += [((1, Hq, Hkv, L, L, 128), True, None, 0, bf16, 1.0)
+                   for Hq, Hkv in ((32, 4), (48, 1), (40, 40))
+                   for L in (127, 1000)]
     attn_err = 0.0
     for (B, Hq, Hkv, Lq, Lkv, D), causal, window, off, dt, qs in attn_cases:
         q = randn(B, Hq, Lq, D, scale=qs).to(dt)
@@ -608,17 +802,12 @@ def lm_phases(cuda_ms, parent=None) -> list:
         torch.cuda.synchronize()
         want = ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=off)
-        g, w = got.float(), want.float()
-        err = float((g - w).abs().max())
         if dt == torch.bfloat16:
-            mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
-            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-            tol = ulp + 1e-5 * float(v.float().abs().max())
-            ok = bool(((g - w).abs() <= tol).all())
-            beyond_ulp = int(((g - w).abs() > ulp).sum())
+            ok, err, beyond_ulp = bf16_rule(got, want, v)
             rule = "1 bf16 ulp + 1e-5*max|v|"
         else:
-            ok = bool(torch.allclose(g, w, rtol=1e-5, atol=1e-5))
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
             beyond_ulp = None
             rule = "rtol=atol=1e-5"
         attn_err = max(attn_err, err)
@@ -716,90 +905,6 @@ def lm_phases(cuda_ms, parent=None) -> list:
                          "of the largest logit below the CPU's best")
 
     # --- serve: zamba2-1.2b at full width and depth ------------------------
-    class Probe:
-        """The model, with the launch counts zeroed just before each
-        prefill and decode step and read just after (host clock to
-        synchronize around each), and each active slot's decode logits."""
-
-        def __init__(self, m):
-            self.m, self.engine = m, None
-            self.prefills, self.decodes, self.logits = [], [], {}
-
-        def __getattr__(self, name):
-            return getattr(self.m, name)
-
-        def _timed(self, fn):
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            return out, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
-
-        def prefill(self, params, batch, cache, *, positions=None):
-            out, ms, counts = self._timed(lambda: self.m.prefill(
-                params, batch, cache, positions=positions))
-            self.prefills.append({
-                "tokens": int(batch["tokens"].shape[1]), "ms": ms,
-                "launches": counts,
-                "finite": bool(torch.isfinite(out[0]).all())})
-            return out
-
-        def decode_step(self, params, token, cache, pos, *, ring=False):
-            active = [(i, r) for i, r in enumerate(self.engine.slots) if r]
-            out, ms, counts = self._timed(lambda: self.m.decode_step(
-                params, token, cache, pos, ring=ring))
-            lg = out[0]
-            self.decodes.append({
-                "active": len(active), "ms": ms, "launches": counts,
-                "finite": bool(torch.isfinite(lg[[i for i, _ in active]])
-                               .all())})
-            for i, r in active:
-                self.logits[(r.uid, len(r.output))] = lg[i].float().cpu()
-            return out
-
-    def serve_traffic(model, params, prompts, new_tokens):
-        """One Engine run of the traffic through the probe."""
-        probe = Probe(model)
-        eng = Engine(probe, params, n_slots=SERVE_SLOTS,
-                     max_len=SERVE_MAX_LEN, device="cuda")
-        probe.engine = eng
-        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=new_tokens)
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        return probe, eng, reqs, time.perf_counter() - t0
-
-    def teacher_forced(model, params, probe, reqs):
-        """Each request's decode-path logits (its first, middle and last
-        step) against a fresh prefill of the same tokens on the card: the
-        largest difference and the largest |logit|."""
-        err = scale = 0.0
-        for r in reqs:
-            seq = r.prompt + r.output
-            for k in (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1):
-                n = len(r.prompt) + k
-                lg, _ = model.prefill(
-                    params, {"tokens": torch.tensor([seq[:n]], device=dev)},
-                    model.init_cache(1, SERVE_MAX_LEN))
-                want = lg[0].float().cpu()
-                err = max(err, float((want - probe.logits[(r.uid, k)])
-                                     .abs().max()))
-                scale = max(scale, float(want.abs().max()))
-        return err, scale
-
-    def launch_faults(probe, per_prefill):
-        """Prefills whose launches differ from ``per_prefill`` (every other
-        kernel 0), and decode steps that launched any kernel."""
-        bad_p = [c for c in probe.prefills
-                 if c["launches"] != {**{k: 0 for k in c["launches"]},
-                                      **per_prefill}]
-        return bad_p, [c for c in probe.decodes if any(c["launches"].values())]
-
     from repro_torch.models.transformer import pattern_for
 
     cfg = get("zamba2-1.2b")
@@ -822,7 +927,8 @@ def lm_phases(cuda_ms, parent=None) -> list:
     done = all(r.done and len(r.output) == SERVE_NEW for r in reqs)
     finite = all(c["finite"] for c in probe.prefills + probe.decodes)
     bad_prefill, bad_decode = launch_faults(probe, per_prefill)
-    tf_bf16, scale_bf16 = teacher_forced(model, params, probe, reqs)
+    tf = teacher_forced(model, params, probe, reqs)
+    tf_bf16, scale_bf16 = tf["max_abs_err"], tf["max_abs_logit"]
     n_tok = sum(len(r.output) for r in reqs)
     full = [c["ms"] for c in probe.decodes if c["active"] == SERVE_SLOTS]
     launches = {"flash_attention": 0, "ssd_scan": 0}
@@ -945,7 +1051,8 @@ def lm_phases(cuda_ms, parent=None) -> list:
                                                 SERVE_NEW)
     done32 = all(r.done and len(r.output) == SERVE_NEW for r in reqs32)
     bad_p32, bad_d32 = launch_faults(probe32, per_prefill)
-    tf_f32, scale_f32 = teacher_forced(model32, params32, probe32, reqs32)
+    tf = teacher_forced(model32, params32, probe32, reqs32)
+    tf_f32, scale_f32 = tf["max_abs_err"], tf["max_abs_logit"]
     del params32
     ssd_traced = runs["prefill_999"]["focus"]["ssd_scan"]["calls"]
     serve_ok = (done and finite and not bad_prefill and not bad_decode
@@ -1070,15 +1177,7 @@ def lm_phases(cuda_ms, parent=None) -> list:
         dt_ = torch.full((1, L, H), 0.05, device=dev)
         A = -torch.ones(H, device=dev)
         Bm, C = randn(1, L, G, N), randn(1, L, G, N)
-        flops = flops_per_head = 0.0
-        for c0 in range(0, L, 128):
-            r = min(128, L - c0)
-            flops += (G * r * (r + 1) * N + H * r * (r + 1) * P
-                      + 4.0 * H * r * N * P)
-            flops_per_head += H * (r * (r + 1) * (N + P) + 4.0 * r * N * P)
-        flops += L * H * P                            # x * dt
-        flops_per_head += L * H * P
-        n_bytes = 4 * (2 * L * H * P + L * H + H + 2 * L * G * N + H * N * P)
+        flops, flops_per_head, n_bytes = ssd_work(1, L, H, P, N, G)
         s_ms, s_by = bound_ms(n_bytes, flops)
         plan = ssd_mod.plan(1, L, H, G, N, P, min(128, L))
         blocks = {k.removeprefix("blocks_"): v for k, v in plan.items()
@@ -1118,15 +1217,6 @@ def lm_phases(cuda_ms, parent=None) -> list:
                 ssd_profile["parent_traced"] = traced(
                     lambda: parent_run(x, dt_, A, Bm, C), "ssd_parent_999")
         ssd_rows.append(row)
-
-    def mean_row(rows):
-        out = {k: sum(r[k] for r in rows) / len(rows)
-               for k in ("ms", "plain_ms", "bound_ms")}
-        lib = [r["library_ms"] for r in rows]
-        out["library_ms"] = None if None in lib else sum(lib) / len(lib)
-        out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
-                                          for r in rows) else "operations")
-        return out
 
     attn_mean, ssd_mean = mean_row(attn_rows), mean_row(ssd_rows)
     if parent_run is not None:
@@ -1505,6 +1595,372 @@ def train_phases() -> dict:
                          f"{launches}")
     return {"launches": {k: launches[k] for k in want_step},
             "per_step": {k: per_step[k] for k in want_step}}
+
+
+def train_shape_times() -> dict:
+    """The two LM kernels at the train step's shapes (``train``: zamba2-1.2b,
+    8 x 512 tokens), one forward launch each: device ms (least of 10),
+    the plain version's and, for attention, SDPA's beside the bound.
+    Attention (8, 32, 512, 64) bf16, causal (``attention_bound``); SSD x
+    (8, 512, 64, 64), B and C (8, 512, 1, 64), f32, chunk 128
+    (``ssd_work`` at the f32 rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as attn_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+
+    B, H, L, D = 8, 32, 512, 64
+    q, k, v = (randn(B, H, L, D, dtype=torch.bfloat16) for _ in range(3))
+    a_ms, a_by = attention_bound(B, H, H, L, D, 2, BF16_FLOPS_PER_S)
+    attn = {"shape": [B, H, H, L, D], "dtype": "bfloat16",
+            "ms": device_ms(lambda: attn_mod.flash_attention(q, k, v)),
+            "plain_ms": device_ms(lambda: ref.attention(q, k, v), n=3),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+            "bound_ms": a_ms, "bound_by": a_by}
+    b, Hs, P, N, G = 8, 64, 64, 64, 1
+    x = randn(b, L, Hs, P, scale=0.1)
+    dt_ = torch.full((b, L, Hs), 0.05, device=dev)
+    A = -torch.ones(Hs, device=dev)
+    Bm, C = randn(b, L, G, N), randn(b, L, G, N)
+    flops, _, n_bytes = ssd_work(b, L, Hs, P, N, G)
+    s_ms, s_by = bound_ms(n_bytes, flops)
+    ssd = {"shape": [b, L, Hs, P, N, G], "dtype": "float32",
+           "ms": device_ms(lambda: ssd_mod.ssd_scan(x, dt_, A, Bm, C)),
+           "plain_ms": device_ms(lambda: ref.ssd_scan_chunked(
+               x, dt_, A, Bm, C), n=3),
+           "library_ms": None, "bound_ms": s_ms, "bound_by": s_by}
+    emit({"phase": "train_shape_times", "note": "one forward launch at the "
+          "train step's shapes, device ms, least of 10",
+          "flash_attention": attn, "ssd_scan": ssd})
+    return {"flash_attention": attn, "ssd_scan": ssd}
+
+
+# The remaining dense families and Mamba-1 (``lm_family_phases``): each arch
+# at full width, at full depth but qwen1.5-32b's (``Model.init`` draws a
+# stacked leaf a layer at a time, so drawing adds one layer's f32 values to
+# the weights; granite-34b's 88 layers are ~68 GB of bf16).  qwen1.5-32b's
+# 64 layers are 70.4 GB of bf16 beside 6.0 GB of cache for 4 x 1152
+# positions and a 3.1 GB f32 head while computing logits: ~81 of the
+# H100's 85.0 GB before what the script's earlier phases hold.  It serves
+# 60 (1.15 GB of weights and cache a layer).
+LM_FAMILIES = (("yi-9b", None), ("granite-34b", None), ("qwen1.5-32b", 60),
+               ("falcon-mamba-7b", None))
+# the dense archs' prefill buckets: every serving prompt fits one
+FAMILY_BUCKETS = (128, 256, 512, 1024)
+# Decode logits against a fresh prefill of the same tokens
+# (``teacher_forced``).  In bf16 the two paths round in other orders (GEMMs
+# of 1 and of L rows, p rounded to bf16 in decode) and the gap grows with
+# depth; an attention fault at a whole-tile bucket length corrupts the
+# cache that decode reads, and logits unrelated to the prefill's are ~1.4
+# apart in norm.  The dense archs read 0.020-0.024 of the prefill's norm
+# on an H100: their limit is 0.1.  falcon-mamba-7b's bf16 gap (0.56 on the
+# H100) is no test of its path: a bf16 Mamba-1 stack's gap grows with
+# depth in the JAX package alike, while the f32 gap stays small.  So
+# falcon is held in f32, at the f32 serving bound of the zamba2 phase
+# (5e-2 of a logit, tests/test_models.py).
+TF_BF16_REL_L2 = 0.1
+TF_F32_ABS = 5e-2
+# the CPU anchor: f32, 2 layers, prompts past falcon's chunk of 64 and not
+# a multiple of it
+ANCHOR_LAYERS, ANCHOR_PROMPTS, ANCHOR_NEW = 2, (100, 128), 8
+
+
+def family_cpu_anchor(cfg, dev) -> dict:
+    """``cfg`` served on ``dev`` and on the CPU from the same parameters,
+    drawn on ``dev`` and copied: ``ANCHOR_PROMPTS`` greedy requests of
+    ``ANCHOR_NEW`` tokens through ``Engine(n_slots=2)``.  The tokens must
+    be equal, and every decode step's logits within 1e-4 of the CPU's
+    largest |logit|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_map
+
+    t0 = time.perf_counter()
+    card = build(cfg, device=dev)
+    params = card.init(torch.Generator(dev).manual_seed(0))
+    cpu = build(cfg, device="cpu")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, n)]
+               for n in ANCHOR_PROMPTS]
+    kw = {} if cfg.family == "ssm" else {"prefill_buckets": (128,)}
+    runs = [serve_traffic(m, p, prompts, ANCHOR_NEW, n_slots=2, max_len=160,
+                          device=m.device, **kw)
+            for m, p in ((card, params), (cpu, params_cpu))]
+    (p_card, _, r_card, card_s), (p_cpu, _, r_cpu, cpu_s) = runs
+    tokens_card = [r.output for r in r_card]
+    tokens_cpu = [r.output for r in r_cpu]
+    keys = sorted(p_card.logits.keys() & p_cpu.logits.keys())
+    err = max(float((p_card.logits[k] - p_cpu.logits[k]).abs().max())
+              for k in keys)
+    scale = max(float(p_cpu.logits[k].abs().max()) for k in keys)
+    ok = (tokens_card == tokens_cpu and err <= 1e-4 * scale
+          and len(keys) == len(prompts) * ANCHOR_NEW)
+    return {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+            "tf32": False, "prompt_lengths": list(ANCHOR_PROMPTS),
+            "new_tokens": ANCHOR_NEW, "tokens_card": tokens_card,
+            "tokens_cpu": tokens_cpu, "tokens_equal": tokens_card == tokens_cpu,
+            "decode_logits_compared": len(keys), "max_abs_err": err,
+            "max_abs_logit": scale, "tol": "1e-4 of max|logit|",
+            "card_seconds": card_s, "cpu_seconds": cpu_s,
+            "seconds": time.perf_counter() - t0, "ok": bool(ok)}
+
+
+def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
+    """``cfg`` in its compute dtype with seed-0 weights drawn on ``dev``,
+    serving ``prompts`` (``SERVE_NEW`` new tokens each, greedy) through
+    ``Engine(n_slots=4, max_len=1152)`` after a 2-request warm-up, each
+    prefill's and decode step's launches counted: one attention launch a
+    prefill per attention layer, none a decode step, no SSD launch.  Then
+    each request's decode logits at three steps against fresh prefills of
+    the same tokens (``teacher_forced``), held to ``tf_gate`` = (measure,
+    limit) where one is given."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_items
+    from repro_torch.models.transformer import pattern_for
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    weights_gb = sum(t.numel() * t.element_size()
+                     for _, t in tree_items(params)) / 1e9
+    # Model.init draws each stacked leaf a layer slice at a time in f32
+    largest_f32_gb = max(
+        math.prod(p.shape[1:] if p.axes[:1] == ("layers",) else p.shape)
+        for _, p in tree_items(model.param_specs)) * 4 / 1e9
+    torch.cuda.empty_cache()
+    pattern, n_super, _, _ = pattern_for(cfg)
+    per_prefill = {"flash_attention": n_super * pattern.count("attn"),
+                   "ssd_scan": 0}
+    kw = {} if cfg.family == "ssm" else {"prefill_buckets": FAMILY_BUCKETS}
+    serve_traffic(model, params, prompts[:2], 2, **kw)       # warm-up
+    gc.collect()            # its engine and probe (a cycle) and their cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    probe, eng, reqs, run_s = serve_traffic(model, params, prompts,
+                                            SERVE_NEW, **kw)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    probe.engine = eng = None        # the engine's cache, before the checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tf = teacher_forced(model, params, probe, reqs)
+    tf["seconds"] = time.perf_counter() - t0
+    tf["gate"] = tf_gate and {"measure": tf_gate[0], "limit": tf_gate[1]}
+    done = all(r.done and len(r.output) == SERVE_NEW for r in reqs)
+    finite = all(c["finite"] for c in probe.prefills + probe.decodes)
+    bad_prefill, bad_decode = launch_faults(probe, per_prefill)
+    full = [c["ms"] for c in probe.decodes if c["active"] == SERVE_SLOTS]
+    n_tok = sum(len(r.output) for r in reqs)
+    launches = {k: sum(c["launches"][k] for c in probe.prefills
+                       + probe.decodes) for k in per_prefill}
+    ok = (done and finite and not bad_prefill and not bad_decode
+          and tf["compared"] == 3 * len(reqs)
+          and (tf_gate is None or tf[tf_gate[0]] <= tf_gate[1]))
+    return {"model": cfg.name, "family": cfg.family,
+            "layers_run": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.hd if cfg.n_heads else None,
+            "d_ff": cfg.d_ff, "act": cfg.act, "qkv_bias": cfg.qkv_bias,
+            "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
+            "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
+            "params": model.param_count(), "weights_gb": weights_gb,
+            "largest_f32_draw_gb": largest_f32_gb, "init_seconds": init_s,
+            "init_peak_memory_gb": init_peak_gb, "n_slots": SERVE_SLOTS,
+            "max_len": SERVE_MAX_LEN, "prefill_buckets": kw.get(
+                "prefill_buckets", "exact length"),
+            "prompt_lengths": [len(p) for p in prompts],
+            "new_tokens": SERVE_NEW,
+            "requests_done": sum(r.done for r in reqs),
+            "all_logits_finite": finite,
+            "prefill_ms_by_prompt_length": {
+                str(len(p)): {"tokens": c["tokens"], "ms": c["ms"]}
+                for p, c in zip(prompts, probe.prefills)},
+            "expected_launches_per_prefill": per_prefill,
+            "launches_per_prefill": [
+                {k: c["launches"][k] for k in per_prefill}
+                for c in probe.prefills],
+            "prefills_with_wrong_launches": len(bad_prefill),
+            "decode_steps": len(probe.decodes),
+            "decode_steps_launching_a_kernel": len(bad_decode),
+            "launches_in_run": launches,
+            "decode_step_ms_4_slots_median": (float(np.median(full))
+                                              if full else None),
+            "decode_step_ms_4_slots_min": min(full) if full else None,
+            "engine_run_seconds": run_s, "tokens_generated": n_tok,
+            "tokens_per_s": n_tok / run_s, "peak_memory_gb": peak_gb,
+            "decode_vs_teacher_forced_prefill": tf, "ok": bool(ok)}
+
+
+def lm_family_phases() -> dict:
+    """yi-9b, granite-34b, qwen1.5-32b and falcon-mamba-7b on the card
+    (``LM_FAMILIES``), each after the previous one is freed: the CPU
+    anchor at ``ANCHOR_LAYERS`` layers, f32 (``family_cpu_anchor``); the
+    serving traffic in bf16 (``serve_family``); for a dense arch the
+    attention kernel at its prefill geometry and the buckets' lengths
+    beside the plain version, SDPA and the bound; for falcon-mamba-7b one
+    layer's Mamba-1 scan at L = 999 (plain PyTorch: no TPU kernel runs it),
+    traced.  One ``lm_families`` line an arch, then the phase's seconds.
+    Returns each dense arch's attention launches and times for the
+    ``kernels`` line."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as attn_mod
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm as ssm_lib
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+    srng = np.random.default_rng(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    entries, failed = {}, []
+    for arch, depth in LM_FAMILIES:
+        t_arch = time.perf_counter()
+        gc.collect()             # the last arch's engine and probe: a cycle
+        torch.cuda.empty_cache()
+        full = get(arch)
+        anchor = family_cpu_anchor(
+            full.replace(n_layers=ANCHOR_LAYERS, compute_dtype="float32"),
+            dev)
+        cfg = full if depth is None else full.replace(n_layers=depth)
+        prompts = [[int(t) for t in srng.integers(1, cfg.vocab, n)]
+                   for n in SERVE_PROMPTS]
+        dense = cfg.family != "ssm"
+        line = serve_family(cfg, dev, prompts, tf_gate=(
+            ("max_rel_l2", TF_BF16_REL_L2) if dense else None))
+        if not dense:           # the decode path held in f32 (TF_F32_ABS)
+            f32 = serve_family(cfg.replace(compute_dtype="float32"), dev,
+                               prompts, tf_gate=("max_abs_err", TF_F32_ABS))
+            line["f32_run"] = {k: f32[k] for k in (
+                "compute_dtype", "requests_done", "all_logits_finite",
+                "prefills_with_wrong_launches",
+                "decode_steps_launching_a_kernel", "engine_run_seconds",
+                "tokens_per_s", "peak_memory_gb",
+                "decode_vs_teacher_forced_prefill", "ok")}
+            line["ok"] = line["ok"] and f32["ok"]
+        line = {"phase": "lm_families", "model": arch,
+                "configured_layers": full.n_layers,
+                "cut": (None if depth is None else
+                        f"depth: {depth} of {full.n_layers} layers, full "
+                        "width"), **line, "cpu_anchor": anchor}
+        if cfg.family == "ssm":
+            s = cfg.ssm
+            L = SERVE_PROMPTS[-1] - 1
+            u = randn(1, L, s.d_inner)
+            dt_ = torch.nn.functional.softplus(randn(1, L, s.d_inner) - 2.0)
+            A = -torch.exp(randn(s.d_inner, s.d_state))
+            Bm, C = randn(1, L, s.d_state), randn(1, L, s.d_state)
+            h0 = torch.zeros(1, s.d_inner, s.d_state, device=dev)
+
+            def scan():
+                return ssm_lib._mamba1_scan(u, dt_, A, Bm, C, h0, s.chunk)
+
+            scan()
+            host = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scan()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            t = gpu_trace(scan, "mamba1_scan_999", 1)
+            # the scan's own bytes (u, dt, B, C, A, h0 read, y and the state
+            # written) and ~6 f32 operations a (step, channel, state)
+            n_bytes = 4 * (3 * L * s.d_inner + 2 * L * s.d_state
+                           + 3 * s.d_inner * s.d_state)
+            b_ms, b_by = bound_ms(n_bytes, 6.0 * L * s.d_inner * s.d_state)
+            line["mamba1_scan_one_layer"] = {
+                "L": L, "chunk": s.chunk, "d_inner": s.d_inner,
+                "d_state": s.d_state, "form": "plain PyTorch, "
+                "Hillis-Steele doubling inside each chunk, carry across",
+                "host_ms_to_sync": sorted(host),
+                "device_busy_ms": t["device_busy_ms"],
+                "device_span_ms": t["device_span_ms"],
+                "gpu_activities": t["gpu_activities"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "trace_whole": t["whole"]}
+        else:
+            Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            rows = []
+            for L in FAMILY_BUCKETS:
+                q = randn(1, Hq, L, D, dtype=torch.bfloat16)
+                k, v = (randn(1, Hkv, L, D, dtype=torch.bfloat16)
+                        for _ in range(2))
+                b_ms, b_by = attention_bound(1, Hq, Hkv, L, D, 2,
+                                             BF16_FLOPS_PER_S)
+                got = attn_mod.flash_attention(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                ok, err, past = bf16_rule(
+                    got, ref.attention(q, k, v, causal=True), v)
+                del got
+                rows.append({
+                    "L": L, "max_abs_err": err,
+                    "elements_beyond_1_ulp": past,
+                    "tol": "1 bf16 ulp + 1e-5*max|v|", "ok": ok,
+                    "ms": device_ms(lambda: attn_mod.flash_attention(
+                        q, k, v, causal=True)),
+                    "plain_ms": device_ms(lambda: ref.attention(
+                        q, k, v, causal=True), n=3),
+                    "library_ms": device_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True)),
+                    "bound_ms": b_ms, "bound_by": b_by})
+            timing = {"shape": [1, Hq, Hkv, "L", D], "dtype": "bfloat16",
+                      "form": attn_mod.FORM[torch.bfloat16],
+                      "by_length": rows, "mean": mean_row(rows)}
+            line["flash_attention_at_prefill_shapes"] = timing
+            line["ok"] = line["ok"] and all(r["ok"] for r in rows)
+            entries[arch] = {
+                "launches": line["launches_in_run"]["flash_attention"],
+                "launches_per_prefill":
+                    line["expected_launches_per_prefill"]["flash_attention"],
+                "shape": timing["shape"], **timing["mean"],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "by_length": rows}
+        line["seconds"] = time.perf_counter() - t_arch
+        line["ok"] = bool(line["ok"] and anchor["ok"])
+        emit(line)
+        if not line["ok"]:
+            failed.append(arch)
+    emit({"phase": "lm_families_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise SystemExit(f"the LM families failed on the card: {failed}")
+    return entries
 
 
 def matmul_phases(cuda_ms, params) -> dict:
@@ -4150,6 +4606,16 @@ def main(argv=None) -> int:
                 "zamba2_serve": {"launches": k["launches"]},
                 "train": {"launches": train["launches"][k["name"]],
                           "launches_per_step": train["per_step"][k["name"]]}}
+    train_times = train_shape_times()
+    for k in kernels:
+        if k["name"] in train_times:
+            k["by_path"]["train"]["forward_launch_at_train_shape"] = \
+                train_times[k["name"]]
+    # the remaining dense families and Mamba-1, each from its own run
+    for arch, entry in lm_family_phases().items():
+        attn_entry = next(k for k in kernels
+                          if k["name"] == "flash_attention")
+        attn_entry["by_path"][f"lm_families_{arch}"] = entry
     emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "
           "taken, whole, taken again; tries that lost primer spins, the "
           "closing spin, or a launch's device record; launches in the "

@@ -3,9 +3,12 @@
 The same frozen dataclasses as the reference, with dtypes kept as names
 (``"bfloat16"``, ``"float32"``) and resolved to torch dtypes by
 ``ModelConfig.cdtype`` / ``pdtype``.  The port serves and trains the
-architectures whose modules it has: ``zamba2-1.2b`` (hybrid Mamba-2 + shared attention)
-and ``h2o-danube-1.8b`` (dense, sliding-window GQA).  Any other known
-architecture raises ``NotImplementedError``.
+architectures whose modules it has (``PORTED``): the dense decoders
+``h2o-danube-1.8b`` (sliding-window GQA), ``yi-9b`` (GQA),
+``granite-34b`` (MQA, GELU MLP) and ``qwen1.5-32b`` (qkv biases), the
+hybrid ``zamba2-1.2b`` (Mamba-2 + shared attention) and the pure Mamba-1
+``falcon-mamba-7b``.  Any other known architecture (MoE, VLM, enc-dec)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -113,7 +116,11 @@ ARCHS = (
 
 _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "yi-9b": "yi_9b",
+    "granite-34b": "granite_34b",
+    "qwen1.5-32b": "qwen1_5_32b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 PORTED = tuple(_MODULES)
@@ -126,7 +133,7 @@ def _module(name: str):
     if name in ARCHS:
         raise NotImplementedError(
             f"{name!r} is not ported yet: the port serves and trains "
-            f"{PORTED}; the other families (Mamba-1, MoE, VLM and enc-dec) "
+            f"{PORTED}; the other families (MoE, VLM and enc-dec) "
             "wait in ROADMAP.md §1, the module queue")
     raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
 

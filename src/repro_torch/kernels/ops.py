@@ -24,6 +24,11 @@ the chunked SSD form recomputed.  A backward launches no kernel; under
 second time.  The kernel wrappers themselves refuse an input that
 requires grad.
 
+The package exports these entry points under their own names, as
+``repro.kernels`` does: ``repro_torch.kernels.flash_attention`` (and the
+other five) is the kernel's module, and calling it calls the function of
+that name here (``kernels/__init__.py``).  Callers in the port use ``ops``.
+
 ``tiled_matmul`` (under ``core.quantize.quantized_matmul``) drops the
 reference's ``impl`` and ``bm``/``bn``/``bk`` knobs, as ``HoughConfig``
 dropped ``impl``: the device picks the path and the kernel its tile.

@@ -5,8 +5,9 @@
         --requests 16 --device cpu
 
 It serves the reduced (smoke) config of ``--arch`` with weights drawn from
-seed 0, on the card unless ``--device cpu``.  The port serves zamba2-1.2b
-and h2o-danube-1.8b (the reference's default, yi-9b, is not ported).
+seed 0, on the card unless ``--device cpu``.  The port serves the archs
+of ``repro_torch.configs.PORTED``; the default stays zamba2-1.2b (the
+reference's is yi-9b).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@
         --preset smoke --steps 100 --ckpt /path/to/ckpt --device cpu
 
 The default arch is zamba2-1.2b, as in ``launch/serve.py`` (the
-reference's default, yi-9b, is not ported); ``--arch h2o-danube-1.8b``
-trains the dense family.  It runs on the card unless ``--device cpu``.
+reference's default is yi-9b); ``--arch`` takes any arch of
+``repro_torch.configs.PORTED``.  It runs on the card unless ``--device cpu``.
 Parameters are drawn from seed 0 in the param dtype (the f32 master), the
 step-indexed token pipeline feeds the device through a prefetch thread,
 and checkpoints are written asynchronously every ``--ckpt-every`` steps

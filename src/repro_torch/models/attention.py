@@ -9,6 +9,8 @@ with f32 results, for two cache layouts:
   * linear cache  (max_len slots, write at ``pos``)      — full attention
   * ring cache    (window slots, write at ``pos % W``)   — sliding window
 
+The kv heads are shared by groups of query heads (GQA; MQA at one kv
+head; MHA), and ``cfg.qkv_bias`` adds biases to the three projections.
 Positions are per request, as the serving engine batches requests at
 different depths.  Unlike the reference, which returns new caches, the
 cache writes here are in place: the engine's cache is one set of tensors
@@ -29,11 +31,8 @@ from .layers import P, apply_rope, matmul_f32
 # --- parameter specs -----------------------------------------------------
 
 def self_attn_spec(cfg) -> Any:
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv biases are not ported (no ported "
-                                  "architecture has them)")
     hd = cfg.hd
-    return {
+    spec = {
         "wq": P((cfg.d_model, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
         "wk": P((cfg.d_model, cfg.n_kv_heads, hd),
                 ("embed", "kv_heads", "head_dim")),
@@ -42,17 +41,31 @@ def self_attn_spec(cfg) -> Any:
         "wo": P((cfg.n_heads, hd, cfg.d_model), ("heads", "head_dim", "embed"),
                 fan_in_dims=(0, 1)),
     }
+    if cfg.qkv_bias:
+        spec["bq"] = P((cfg.n_heads, hd), ("heads", "head_dim"), init="zeros")
+        spec["bk"] = P((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                       init="zeros")
+        spec["bv"] = P((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                       init="zeros")
+    return spec
 
 
 # --- projections -----------------------------------------------------------
+# The qkv biases (qwen) are added after the projection, in x's dtype.
 
 def _proj_q(params, x):
-    return torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+    return q
 
 
 def _proj_kv(params, x):
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if "bk" in params:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
     return k, v
 
 

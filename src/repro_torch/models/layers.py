@@ -60,8 +60,15 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def _leaf_init(gen: torch.Generator, p: P) -> torch.Tensor:
-    dtype = torch_dtype(p.dtype)
+def _leaf_init(gen: torch.Generator, p: P,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One leaf drawn from ``gen`` on its device, in ``dtype`` if given and
+    the leaf is floating, else in the spec's dtype.  A stacked leaf (first
+    axis ``layers``) is drawn one layer at a time in f32 and cast into its
+    slice, so that drawing holds one layer's f32 values, never the whole
+    stack's."""
+    dtype = dtype if dtype is not None and torch_dtype(
+        p.dtype).is_floating_point else torch_dtype(p.dtype)
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=gen.device)
     if p.init == "ones":
@@ -71,22 +78,23 @@ def _leaf_init(gen: torch.Generator, p: P) -> torch.Tensor:
     else:  # normal with 1/sqrt(fan_in)
         fan_in = math.prod(p.shape[d] for d in p.fan_in_dims) or 1
         scale = p.scale if p.scale is not None else fan_in ** -0.5
-    draw = torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                       device=gen.device)
-    return (scale * draw).to(dtype)
+    stacked = p.axes[:1] == ("layers",)
+    out = torch.empty(p.shape, dtype=dtype, device=gen.device)
+    for t in (out if stacked else (out,)):
+        t.copy_(torch.randn(t.shape, generator=gen, dtype=torch.float32,
+                            device=gen.device).mul_(scale))
+    return out
 
 
 def materialize(gen: torch.Generator, specs: Any, *, device=None,
                 dtype: Optional[torch.dtype] = None) -> Any:
     """Draw a P-tree leaf by leaf (sorted-key order) from ``gen``, on the
-    generator's device, then move each leaf to ``device`` and, if given,
-    cast its floating leaves to ``dtype`` before the next draw (so a full
-    model never holds two copies)."""
+    generator's device, casting floating leaves to ``dtype`` if given as
+    they are drawn, then move each leaf to ``device`` before the next draw
+    (so a full model never holds two copies)."""
     out: dict = {}
     for path, spec in tree_items(specs):
-        t = _leaf_init(gen, spec)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
+        t = _leaf_init(gen, spec, dtype)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -172,25 +180,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # --- MLP -----------------------------------------------------------------
 
 def mlp_spec(d_model: int, d_ff: int, act: str = "silu") -> Any:
-    if act != "silu":
-        raise NotImplementedError(f"act {act!r} is not ported (the GELU MLP "
-                                  "waits with enc-dec)")
-    return {
-        "wi_gate": P((d_model, d_ff), ("embed", "mlp")),
-        "wi_up": P((d_model, d_ff), ("embed", "mlp")),
+    if act == "silu":   # SwiGLU: gate + up + down
+        return {
+            "wi_gate": P((d_model, d_ff), ("embed", "mlp")),
+            "wi_up": P((d_model, d_ff), ("embed", "mlp")),
+            "wo": P((d_ff, d_model), ("mlp", "embed")),
+        }
+    if act != "gelu":
+        raise ValueError(f"unknown act {act!r}")
+    return {   # plain two-matrix MLP with biases (granite-34b)
+        "wi": P((d_model, d_ff), ("embed", "mlp")),
+        "bi": P((d_ff,), ("mlp",), init="zeros"),
         "wo": P((d_ff, d_model), ("mlp", "embed")),
+        "bo": P((d_model,), ("embed",), init="zeros"),
     }
 
 
 def apply_mlp(params: Any, x: torch.Tensor, act: str = "silu"
               ) -> torch.Tensor:
-    """SwiGLU in x's dtype: silu(x Wg) * (x Wu), then Wo."""
-    if act != "silu":
-        raise NotImplementedError(f"act {act!r} is not ported")
+    """In x's dtype, in the reference's order.  SwiGLU: silu(x Wg) *
+    (x Wu), then Wo.  GELU: gelu(x Wi + bi) with the tanh approximation
+    (``jax.nn.gelu(approximate=True)``), then Wo, then + bo."""
     dt = x.dtype
-    g = torch.matmul(x, params["wi_gate"].to(dt))
-    u = torch.matmul(x, params["wi_up"].to(dt))
-    return torch.matmul(F.silu(g) * u, params["wo"].to(dt))
+    if act == "silu":
+        g = torch.matmul(x, params["wi_gate"].to(dt))
+        u = torch.matmul(x, params["wi_up"].to(dt))
+        return torch.matmul(F.silu(g) * u, params["wo"].to(dt))
+    h = torch.matmul(x, params["wi"].to(dt))
+    h = F.gelu(h + params["bi"].to(dt), approximate="tanh")
+    return torch.matmul(h, params["wo"].to(dt)) + params["bo"].to(dt)
 
 
 # --- embeddings / logits -------------------------------------------------

@@ -1,10 +1,15 @@
-"""Mamba-2 blocks (``repro/models/ssm.py``, the Mamba-2 half).
+"""State-space blocks (``repro/models/ssm.py``): Mamba-1 (the selective
+scan) and Mamba-2 (SSD).
 
-Prefill runs the SSD scan through ``kernels.ops.ssd_scan`` (the hand
-kernel on the card, the plain versions on the CPU); decode is the O(1)
-recurrent step.  As in the reference, the scan is called without
-``cfg.ssm.chunk``, so it always takes the default chunk of 128.  Mamba-1
-waits in the module queue (ROADMAP.md).
+Mamba-2's prefill runs the SSD scan through ``kernels.ops.ssd_scan`` (the
+hand kernel on the card, the plain versions on the CPU); as in the
+reference, the scan is called without ``cfg.ssm.chunk``, so it always
+takes the default chunk of 128.  Mamba-1's decay varies per (channel,
+state) pair, so it has no such rewrite: the reference runs it in plain JAX
+as a chunked associative scan (log-depth inside each chunk of
+``cfg.ssm.chunk``, a sequential carry across chunks), and so does the
+port, in plain PyTorch (:func:`_mamba1_scan`).  Decode is the O(1)
+recurrent step for both.
 """
 
 from __future__ import annotations
@@ -58,6 +63,105 @@ def _causal_conv(x, w, b, *, state=None):
         y = y + ctx[:, i:i + L] * w[i].to(x.dtype)
     new_state = ctx[:, -(K - 1):] if K > 1 else state
     return F.silu(y + b.to(x.dtype)), new_state
+
+
+def mamba1_spec(cfg) -> Any:
+    s = cfg.ssm
+    D, Din, N, R = cfg.d_model, s.d_inner, s.d_state, s.dt_rank
+    return {
+        "in_proj": P((D, 2 * Din), ("embed", "inner")),
+        "conv_w": P((s.d_conv, Din), ("conv_k", "inner"), scale=0.5),
+        "conv_b": P((Din,), ("inner",), init="zeros"),
+        "x_proj": P((Din, R + 2 * N), ("inner", "dt_rank")),
+        "dt_w": P((R, Din), ("dt_rank", "inner")),
+        "dt_b": P((Din,), ("inner",), init="zeros"),
+        "A_log": P((Din, N), ("inner", "state"), init="zeros"),
+        "D": P((Din,), ("inner",), init="ones"),
+        "out_proj": P((Din, D), ("inner", "embed")),
+    }
+
+
+def _prefix_combine(a, b):
+    """Inclusive prefix of the pairs (a, b) along dim 1 under the scan's
+    combine (a1, b1) . (a2, b2) = (a1 a2, b2 + a2 b1), by doubling
+    (Hillis-Steele): log2(Q) rounds, each over the whole chunk."""
+    Q = a.shape[1]
+    s = 1
+    while s < Q:
+        b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return a, b
+
+
+def _mamba1_scan(u, dt, A, Bt, Ct, h0, chunk: int):
+    """Chunked associative selective scan, f32.
+
+    u, dt: (B, L, Din); A: (Din, N); Bt, Ct: (B, L, N); h0: (B, Din, N).
+    Returns y (B, L, Din) and the final state hL (B, Din, N).  L is padded
+    with dt = 0 to whole chunks of ``min(chunk, L)``: a padded step has
+    decay 1 and input 0, so it leaves the carried state as it is.
+    """
+    B, L, Din = u.shape
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    if pad:
+        u, dt, Bt, Ct = (F.pad(t, (0, 0, 0, pad)) for t in (u, dt, Bt, Ct))
+    h, ys = h0, []
+    for c0 in range(0, L + pad, Q):
+        sl = slice(c0, c0 + Q)
+        dtc = dt[:, sl]
+        a = torch.exp(dtc[..., None] * A)                   # (B, Q, Din, N)
+        x_in = (dtc * u[:, sl])[..., None] * Bt[:, sl, None, :]
+        a_cum, s = _prefix_combine(a, x_in)
+        h_all = s + a_cum * h[:, None]
+        ys.append(torch.einsum("bqn,bqdn->bqd", Ct[:, sl], h_all))
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1)[:, :L], h
+
+
+def mamba1_forward(params, x, cfg, *, state=None):
+    """x: (B, L, D) -> (y, new_state).  ``state`` = {"conv", "ssm"} carries
+    a previous segment's (decode, or a prefill in parts); without it the
+    scan starts from zeros."""
+    s = cfg.ssm
+    B, L, D = x.shape
+    f32 = torch.float32
+    xz = torch.matmul(x, params["in_proj"].to(x.dtype))
+    xi, z = torch.chunk(xz, 2, dim=-1)                      # (B, L, Din)
+
+    conv_state = None if state is None else state["conv"]
+    xi, new_conv = _causal_conv(xi, params["conv_w"], params["conv_b"],
+                                state=conv_state)
+
+    proj = torch.matmul(xi.to(f32), params["x_proj"].to(f32))
+    dt_lr, Bt, Ct = torch.split(proj, [s.dt_rank, s.d_state, s.d_state],
+                                dim=-1)
+    dt = _softplus(torch.matmul(dt_lr, params["dt_w"].to(f32))
+                   + params["dt_b"].to(f32))
+    A = -torch.exp(params["A_log"].to(f32))
+
+    h0 = (torch.zeros((B, s.d_inner, s.d_state), dtype=f32, device=x.device)
+          if state is None else state["ssm"])
+    y, hL = _mamba1_scan(xi.to(f32), dt, A, Bt, Ct, h0, s.chunk)
+    y = y + params["D"].to(f32) * xi.to(f32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = torch.matmul(y, params["out_proj"].to(x.dtype))
+    return out, {"conv": new_conv, "ssm": hL}
+
+
+def mamba1_decode(params, x, cfg, state):
+    """One token a request, x (B, 1, D): the O(1) step from ``state``."""
+    return mamba1_forward(params, x, cfg, state=state)
+
+
+def mamba1_state_spec(cfg, batch: int) -> dict:
+    """``{"conv": (shape, dtype), "ssm": (shape, dtype)}`` of one layer."""
+    s = cfg.ssm
+    return {
+        "conv": ((batch, s.d_conv - 1, s.d_inner), cfg.cdtype),
+        "ssm": ((batch, s.d_inner, s.d_state), torch.float32),
+    }
 
 
 def mamba2_forward(params, x, cfg, *, state=None):

@@ -5,15 +5,18 @@ reference runs the repeats as one ``lax.scan`` over stacked parameters;
 here a Python loop takes layer ``i`` as the view ``leaf[i]`` of the same
 stacked leaves.  Sub-block kinds of the ported families:
 
-  attn     pre-norm self-attention (+RoPE, causal, optional sliding window)
-  mlp      pre-norm SwiGLU MLP
+  attn     pre-norm self-attention (+RoPE, causal, optional sliding window,
+           optional qkv biases; GQA, MQA or MHA)
+  mlp      pre-norm MLP (SwiGLU, or GELU with biases)
+  mamba1   pre-norm Mamba-1 block (the chunked selective scan)
   mamba2   pre-norm Mamba-2 block
   (zamba2's shared attention block is one set of parameters, applied after
    every superblock with a cache entry of its own per application)
 
-Patterns: dense ``("attn", "mlp") x n_layers``; hybrid ``("mamba2",) x
-share_every [+ shared block] x n_super`` plus a tail without the shared
-block.  Three modes share the sub-block code: train (the whole sequence,
+Patterns: dense ``("attn", "mlp") x n_layers``; ssm ``("mamba1",) x
+n_layers``; hybrid ``("mamba2",) x share_every [+ shared block] x
+n_super`` plus a tail without the shared block.  The moe, vlm and encdec
+families are not ported.  Three modes share the sub-block code: train (the whole sequence,
 no cache: ``forward_hidden``, ``forward``, ``loss_fn``), prefill (the
 whole prompt, fills the caches from the request offsets) and decode (one
 token per request at per-request positions).  Caches are updated in
@@ -42,13 +45,15 @@ def pattern_for(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...], int]:
     fam = cfg.family
     if fam == "dense":
         return ("attn", "mlp"), cfg.n_layers, (), 0
+    if fam == "ssm" and cfg.ssm.kind == "mamba1":
+        return ("mamba1",), cfg.n_layers, (), 0
     if fam == "hybrid":
         k = cfg.share_every
         n_super, tail = divmod(cfg.n_layers, k)
         return ("mamba2",) * k, n_super, ("mamba2",) * tail, tail
     raise NotImplementedError(
-        f"family {fam!r} is not ported: the port serves dense and hybrid; "
-        "ssm (Mamba-1), moe, vlm and encdec wait in ROADMAP.md §1")
+        f"family {fam!r} is not ported: the port serves dense, ssm "
+        "(Mamba-1) and hybrid; moe, vlm and encdec wait in ROADMAP.md §1")
 
 
 def _block_spec(cfg, kind: str) -> Any:
@@ -59,6 +64,9 @@ def _block_spec(cfg, kind: str) -> Any:
     if kind == "mlp":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "mlp": layers.mlp_spec(d, cfg.d_ff, cfg.act)}
+    if kind == "mamba1":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "ssm": ssm_lib.mamba1_spec(cfg)}
     if kind == "mamba2":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "ssm": ssm_lib.mamba2_spec(cfg)}
@@ -126,9 +134,11 @@ def _apply_block(kind: str, bp, x, cfg, ctx, cache):
         return x + y
     if kind == "mlp":
         return x + layers.apply_mlp(bp["mlp"], h, cfg.act)
-    if kind == "mamba2":
+    if kind in ("mamba1", "mamba2"):
+        fwd = (ssm_lib.mamba1_forward if kind == "mamba1"
+               else ssm_lib.mamba2_forward)
         state = cache if ctx["mode"] == "decode" else None
-        y, new_state = ssm_lib.mamba2_forward(bp["ssm"], h, cfg, state=state)
+        y, new_state = fwd(bp["ssm"], h, cfg, state=state)
         if not train:
             cache["conv"].copy_(new_state["conv"])
             cache["ssm"].copy_(new_state["ssm"])
@@ -210,6 +220,8 @@ def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
     def entry(kind):
         if kind == "attn":
             return attn.cache_spec(cfg, batch, max_len, ring=ring)
+        if kind == "mamba1":
+            return ssm_lib.mamba1_state_spec(cfg, batch)
         if kind == "mamba2":
             return ssm_lib.mamba2_state_spec(cfg, batch)
         return None

@@ -206,5 +206,5 @@ def test_launch_serve_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "generated 9 tokens" in out and "device=cpu" in out
     with pytest.raises(NotImplementedError):
-        serve_cli.main(["--arch", "yi-9b", "--device", "cpu"])
+        serve_cli.main(["--arch", "whisper-large-v3", "--device", "cpu"])
     assert get_smoke("zamba2-1.2b").family == "hybrid"
