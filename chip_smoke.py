@@ -99,20 +99,25 @@ kernel's launches a step (twice the forward's with remat) and one step
 traced, and the two LM kernels' forward launch at the step's shapes
 beside their bounds (``train_shape_times``).
 
-The remaining dense families and Mamba-1 (``lm_family_phases``):
-yi-9b (48 layers), granite-34b (88), qwen1.5-32b (60 of 64) and
-falcon-mamba-7b (64), each at full width in bf16 with seed-0 weights drawn
-on the card, serving the LM traffic through ``Engine(n_slots=4,
-max_len=1152)`` (prefill ms by length, decode ms a step, tokens/s, peak
-memory, attention launches a prefill and a decode step, finite logits,
-decode logits against fresh prefills of the same tokens, falcon's again
-in f32); each at full width cut to 2 layers, f32, served on the card and
+The remaining dense families, Mamba-1 and the MoE family
+(``lm_family_phases``): yi-9b (48 layers), granite-34b (88), qwen1.5-32b
+(60 of 64), falcon-mamba-7b (64), moonshot-v1-16b-a3b (48) and
+llama4-scout-17b-a16e (16 of 48), each at full width in bf16 with seed-0
+weights drawn on the card, serving the LM traffic through
+``Engine(n_slots=4, max_len=1152)`` (prefill ms by length, decode ms a
+step, tokens/s, peak memory, attention launches a prefill and a decode
+step, finite logits, decode logits against fresh prefills of the same
+tokens, falcon's again in f32; the MoE archs' gap reported at the
+published capacity, again in bf16 at lifted capacity, and held in f32 at
+lifted capacity at a cut depth, with one prefill and one decode step
+traced and one MoE layer's sort dispatch held to the one-hot form and
+timed); each at full width cut to 2 layers, f32, served on the card and
 the CPU from the same parameters (equal tokens, logits within 1e-4 of
-max|logit|); the
-attention kernel at each dense arch's head geometry (D = 128; GQA 32/4,
-MQA 48/1, MHA 40/40) and the prefill buckets' lengths held against the
-plain version under the bf16 rule and timed beside SDPA and the bound;
-one layer of falcon's plain Mamba-1 scan traced.
+max|logit|); the attention kernel at each attention arch's head geometry
+(D = 128; GQA 32/4, MQA 48/1, MHA 40/40, GQA 40/8, MHA 16/16) and the
+prefill buckets' lengths held against the plain version under the bf16
+rule and timed beside SDPA and the bound; one layer of falcon's plain
+Mamba-1 scan traced.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
@@ -789,9 +794,12 @@ def lm_phases(cuda_ms, parent=None) -> list:
                    ((1, 4, 4, 37, 37, 16), False, None, 0, f32, 1.0),
                    ((1, 4, 1, 3, 200, 128), True, None, 197, f32, 1.0)]
     # the families' prefill geometry at D = 128 (lm_family_phases): yi-9b
-    # GQA 32/4, granite-34b MQA 48/1, qwen1.5-32b MHA 40/40
+    # GQA 32/4, granite-34b MQA 48/1, qwen1.5-32b MHA 40/40,
+    # llama4-scout-17b-a16e GQA 40/8 (a group of 5), moonshot-v1-16b-a3b
+    # MHA 16/16
     attn_cases += [((1, Hq, Hkv, L, L, 128), True, None, 0, bf16, 1.0)
-                   for Hq, Hkv in ((32, 4), (48, 1), (40, 40))
+                   for Hq, Hkv in ((32, 4), (48, 1), (40, 40), (40, 8),
+                                   (16, 16))
                    for L in (127, 1000)]
     attn_err = 0.0
     for (B, Hq, Hkv, Lq, Lkv, D), causal, window, off, dt, qs in attn_cases:
@@ -1645,17 +1653,26 @@ def train_shape_times() -> dict:
     return {"flash_attention": attn, "ssd_scan": ssd}
 
 
-# The remaining dense families and Mamba-1 (``lm_family_phases``): each arch
-# at full width, at full depth but qwen1.5-32b's (``Model.init`` draws a
+# The remaining dense families, Mamba-1 and MoE (``lm_family_phases``):
+# each arch at full width, at full depth but qwen1.5-32b's and
+# llama4-scout-17b-a16e's (``Model.init`` draws a
 # stacked leaf a layer at a time, so drawing adds one layer's f32 values to
 # the weights; granite-34b's 88 layers are ~68 GB of bf16).  qwen1.5-32b's
 # 64 layers are 70.4 GB of bf16 beside 6.0 GB of cache for 4 x 1152
 # positions and a 3.1 GB f32 head while computing logits: ~81 of the
 # H100's 85.0 GB before what the script's earlier phases hold.  It serves
-# 60 (1.15 GB of weights and cache a layer).
+# 60 (1.15 GB of weights and cache a layer).  The MoE archs
+# (reference ``param_count``): moonshot-v1-16b-a3b's 28.06 B parameters are
+# 56.1 GB of bf16 beside 1.8 GB of cache and a 1.3 GB f32 head, and run
+# whole; llama4-scout-17b-a16e's 101.73 B are 2.08 B a layer (4.15 GB of
+# bf16) plus a 4.14 GB untied embedding and head: 16 of 48 layers are
+# ~70.6 GB of weights, a 4.14 GB f32 head on top while computing logits,
+# and the untied table's 4.14 GB f32 draw: a peak near 75-77 GB, qwen's
+# margin.
 LM_FAMILIES = (("yi-9b", None), ("granite-34b", None), ("qwen1.5-32b", 60),
-               ("falcon-mamba-7b", None))
-# the dense archs' prefill buckets: every serving prompt fits one
+               ("falcon-mamba-7b", None), ("moonshot-v1-16b-a3b", None),
+               ("llama4-scout-17b-a16e", 16))
+# the attention archs' prefill buckets: every serving prompt fits one
 FAMILY_BUCKETS = (128, 256, 512, 1024)
 # Decode logits against a fresh prefill of the same tokens
 # (``teacher_forced``).  In bf16 the two paths round in other orders (GEMMs
@@ -1670,6 +1687,25 @@ FAMILY_BUCKETS = (128, 256, 512, 1024)
 # (5e-2 of a logit, tests/test_models.py).
 TF_BF16_REL_L2 = 0.1
 TF_F32_ABS = 5e-2
+# An MoE layer's capacity C = max(int(1.25 k T / E), k) counts every token
+# of the call: a prefill's bucket pads, all 4 slots of a decode step, idle
+# ones too.  A fresh prefill at exact length has another T, so the two
+# paths drop other assignments, in the reference alike (llama4 decodes at
+# C = 1 an expert, moonshot at 6): the bf16 gap at the published capacity
+# is reported, not gated.  The decode path is held at lifted capacity
+# (factor n_experts: C = k T, no assignment drops) in f32, at a depth that
+# fits: bf16's other rounding in the two paths flips router choices, and a
+# flip at top-1 changes a token's whole FFN output.
+MOE_TF_NOTE = ("not gated: the capacity counts every token of a call "
+               "(bucket pads, idle slots), so decode and a fresh prefill "
+               "drop other assignments at the published capacity, in the "
+               "reference too; the decode path is held at lifted capacity "
+               "in f32 (f32_lifted_capacity_run)")
+MOE_F32_DEPTH = {"moonshot-v1-16b-a3b": 16, "llama4-scout-17b-a16e": 4}
+# one MoE layer at full width: tokens, and the f32 rule of the reference's
+# own sort-vs-onehot test (tests/test_models.py), taken of max|y|
+MOE_LAYER_TOKENS = 1024
+MOE_SORT_VS_ONEHOT = 2e-3
 # the CPU anchor: f32, 2 layers, prompts past falcon's chunk of 64 and not
 # a multiple of it
 ANCHOR_LAYERS, ANCHOR_PROMPTS, ANCHOR_NEW = 2, (100, 128), 8
@@ -1718,7 +1754,14 @@ def family_cpu_anchor(cfg, dev) -> dict:
             "seconds": time.perf_counter() - t0, "ok": bool(ok)}
 
 
-def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
+# substrings of the device kernels' names that a traced MoE prefill and
+# decode step sum (``serve_family(trace=True)``): cuBLAS GEMMs, the
+# attention kernel, element-wise, reductions, gathers / scatters, scans
+TRACE_FOCUS = ("gemm", "flash_attention", "elementwise", "reduce", "index",
+               "scatter", "scan", "sort")
+
+
+def serve_family(cfg, dev, prompts, tf_gate=None, trace=False) -> dict:
     """``cfg`` in its compute dtype with seed-0 weights drawn on ``dev``,
     serving ``prompts`` (``SERVE_NEW`` new tokens each, greedy) through
     ``Engine(n_slots=4, max_len=1152)`` after a 2-request warm-up, each
@@ -1726,7 +1769,8 @@ def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
     prefill per attention layer, none a decode step, no SSD launch.  Then
     each request's decode logits at three steps against fresh prefills of
     the same tokens (``teacher_forced``), held to ``tf_gate`` = (measure,
-    limit) where one is given."""
+    limit) where one is given.  With ``trace``, one prefill of the largest
+    bucket and one 4-slot decode step are traced (``gpu_trace``)."""
     import dataclasses
     import gc
     import math
@@ -1768,6 +1812,23 @@ def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
     probe.engine = eng = None        # the engine's cache, before the checks
     gc.collect()
     torch.cuda.empty_cache()
+    profiled = None
+    if trace:
+        L = FAMILY_BUCKETS[-1]
+        tg = torch.Generator(dev).manual_seed(1)
+        toks = torch.randint(1, cfg.vocab, (1, L), generator=tg, device=dev)
+        one = model.init_cache(1, SERVE_MAX_LEN)
+        slots = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)
+        step = toks[0, :SERVE_SLOTS].contiguous()
+        pos = torch.full((SERVE_SLOTS,), L, dtype=torch.int32, device=dev)
+        profiled = {
+            f"prefill_{L}": gpu_trace(lambda: model.prefill(
+                params, {"tokens": toks}, one), f"{cfg.name}_prefill", 1,
+                focus=TRACE_FOCUS),
+            "decode_step_4_slots": gpu_trace(lambda: model.decode_step(
+                params, step, slots, pos), f"{cfg.name}_decode", 1,
+                focus=TRACE_FOCUS)}
+        del one, slots
     t0 = time.perf_counter()
     tf = teacher_forced(model, params, probe, reqs)
     tf["seconds"] = time.perf_counter() - t0
@@ -1788,6 +1849,7 @@ def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
             "head_dim": cfg.hd if cfg.n_heads else None,
             "d_ff": cfg.d_ff, "act": cfg.act, "qkv_bias": cfg.qkv_bias,
             "ssm": None if cfg.ssm is None else dataclasses.asdict(cfg.ssm),
+            "moe": None if cfg.moe is None else dataclasses.asdict(cfg.moe),
             "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
             "params": model.param_count(), "weights_gb": weights_gb,
             "largest_f32_draw_gb": largest_f32_gb, "init_seconds": init_s,
@@ -1814,20 +1876,123 @@ def serve_family(cfg, dev, prompts, tf_gate=None) -> dict:
             "decode_step_ms_4_slots_min": min(full) if full else None,
             "engine_run_seconds": run_s, "tokens_generated": n_tok,
             "tokens_per_s": n_tok / run_s, "peak_memory_gb": peak_gb,
-            "decode_vs_teacher_forced_prefill": tf, "ok": bool(ok)}
+            "decode_vs_teacher_forced_prefill": tf, "profiled": profiled,
+            "ok": bool(ok)}
+
+
+@contextlib.contextmanager
+def router_margins():
+    """Record, for every routing of ``models.moe`` while open, the gap
+    between each token's k-th and (k+1)-th router probability (f32): the
+    least gap and the routings within 1e-6, kept on the card until read
+    (no host sync a call)."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib._route
+    rec = {"calls": 0, "least": [], "near_ties": []}
+
+    def recorded(params, x2d, m):
+        probs, top_w, top_e = route(params, x2d, m)
+        top = torch.topk(probs, m.top_k + 1, dim=-1).values
+        gap = top[:, -2] - top[:, -1]
+        rec["calls"] += 1
+        rec["least"].append(gap.min())
+        rec["near_ties"].append((gap < 1e-6).sum())
+        return probs, top_w, top_e
+
+    moe_lib._route = recorded
+    try:
+        yield rec
+    finally:
+        moe_lib._route = route
+
+
+def moe_layer_check(cfg, dev) -> dict:
+    """One MoE layer of ``cfg`` at full width, seed-0 weights drawn on
+    ``dev``, on ``MOE_LAYER_TOKENS`` tokens that share a component of half
+    their scale (as a residual stream's do, so the router favours some
+    experts and the published capacity drops assignments): ``moe_sort`` against
+    ``moe_onehot`` in f32 with TF32 off, within ``MOE_SORT_VS_ONEHOT`` of
+    max|y|, the aux losses within 1e-5; the dropped assignments counted.
+    Then the same layer in bf16: device ms of ``moe_sort``, of its expert
+    FFN alone (the three batched GEMMs on the dispatched (E, C, D)) and of
+    ``moe_onehot`` (the plain form), beside the bound: the expert weights,
+    the router, x and the output moved once, and 6 D F FLOP a kept
+    assignment at the bf16 rate.  No PyTorch call computes the layer."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import materialize, tree_map
+
+    t0 = time.perf_counter()
+    m, T, D = cfg.moe, MOE_LAYER_TOKENS, cfg.d_model
+    gen = torch.Generator(dev).manual_seed(0)
+    params = materialize(gen, moe_lib.moe_spec(cfg), device=dev)
+    x = (torch.randn(1, T, D, generator=gen, device=dev)
+         + 0.5 * torch.randn(1, 1, D, generator=gen, device=dev))
+    f32 = cfg.replace(compute_dtype="float32")
+    y_sort, a_sort = moe_lib.moe_sort(params, x, f32)
+    y_oh, a_oh = moe_lib.moe_onehot(params, x, f32)
+    err = float((y_sort - y_oh).abs().max())
+    scale = float(y_oh.abs().max())
+    aux_rel = abs(float(a_sort) - float(a_oh)) / abs(float(a_oh))
+    _, _, top_e = moe_lib._route(params, x.reshape(T, D), m)
+    C = moe_lib._capacity(T, m)
+    dropped = int((moe_lib._positions(top_e, m.n_experts) >= C).sum())
+    load = torch.bincount(top_e.reshape(-1), minlength=m.n_experts)
+    del y_sort, y_oh
+
+    bf = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    xb = x.to(torch.bfloat16)
+    xs = torch.randn(m.n_experts, C, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms = device_ms(lambda: moe_lib.moe_sort(bf, xb, cfg))
+    ffn_ms = device_ms(lambda: moe_lib._expert_ffn(bf, xs, torch.bfloat16))
+    plain_ms = device_ms(lambda: moe_lib.moe_onehot(bf, xb, cfg), n=3)
+    kept = T * m.top_k - dropped
+    n_bytes = 2 * (3 * m.n_experts * D * m.d_ff + D * m.n_experts + 2 * T * D)
+    b_ms, b_by = bound_ms(n_bytes, 6.0 * D * m.d_ff * kept, BF16_FLOPS_PER_S)
+    ok = (err <= MOE_SORT_VS_ONEHOT * scale and aux_rel <= 1e-5
+          and math.isfinite(scale))
+    return {"tokens": T, "n_experts": m.n_experts, "top_k": m.top_k,
+            "d_ff": m.d_ff, "capacity": C, "capacity_factor":
+            m.capacity_factor, "assignments": T * m.top_k,
+            "dropped_assignments": dropped,
+            "drop_path_exercised": dropped > 0,
+            "tokens_an_expert_least_most": [int(load.min()),
+                                            int(load.max())],
+            "f32_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "sort_vs_onehot_max_abs_err": err, "max_abs_y": scale,
+            "tol": f"{MOE_SORT_VS_ONEHOT} of max|y|; aux 1e-5 relative",
+            "aux_sort": float(a_sort), "aux_onehot": float(a_oh),
+            "aux_rel_err": aux_rel,
+            "bf16_moe_sort_ms": ms, "bf16_expert_ffn_ms": ffn_ms,
+            "expert_gemm_share": ffn_ms / ms,
+            "bf16_moe_onehot_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "expert_weights_gb": 2 * 3 * m.n_experts * D * m.d_ff / 1e9,
+            "times": "device ms of one call, least of 10 (onehot 3)",
+            "seconds": time.perf_counter() - t0, "ok": bool(ok)}
 
 
 def lm_family_phases() -> dict:
-    """yi-9b, granite-34b, qwen1.5-32b and falcon-mamba-7b on the card
+    """yi-9b, granite-34b, qwen1.5-32b, falcon-mamba-7b,
+    moonshot-v1-16b-a3b and llama4-scout-17b-a16e on the card
     (``LM_FAMILIES``), each after the previous one is freed: the CPU
     anchor at ``ANCHOR_LAYERS`` layers, f32 (``family_cpu_anchor``); the
-    serving traffic in bf16 (``serve_family``); for a dense arch the
-    attention kernel at its prefill geometry and the buckets' lengths
-    beside the plain version, SDPA and the bound; for falcon-mamba-7b one
-    layer's Mamba-1 scan at L = 999 (plain PyTorch: no TPU kernel runs it),
-    traced.  One ``lm_families`` line an arch, then the phase's seconds.
-    Returns each dense arch's attention launches and times for the
-    ``kernels`` line."""
+    serving traffic in bf16 (``serve_family``); for an MoE arch the same
+    traffic in f32 at lifted capacity (``MOE_F32_DEPTH`` layers, router
+    gaps recorded) and one layer's dispatch (``moe_layer_check``); for an
+    attention arch the kernel at its prefill geometry and the buckets'
+    lengths beside the plain version, SDPA and the bound; for
+    falcon-mamba-7b one layer's Mamba-1 scan at L = 999 (plain PyTorch: no
+    TPU kernel runs it), traced.  One ``lm_families`` line an arch, then
+    the phase's seconds.  Returns each attention arch's attention launches
+    and times for the ``kernels`` line."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -1860,8 +2025,53 @@ def lm_family_phases() -> dict:
         prompts = [[int(t) for t in srng.integers(1, cfg.vocab, n)]
                    for n in SERVE_PROMPTS]
         dense = cfg.family != "ssm"
+        moe = cfg.family == "moe"
         line = serve_family(cfg, dev, prompts, tf_gate=(
-            ("max_rel_l2", TF_BF16_REL_L2) if dense else None))
+            ("max_rel_l2", TF_BF16_REL_L2) if dense and not moe else None),
+            trace=moe)
+        if moe:     # the decode path held in f32 at lifted capacity
+            line["decode_vs_teacher_forced_prefill"]["note"] = MOE_TF_NOTE
+            lift = dataclasses.replace(full.moe, capacity_factor=float(
+                full.moe.n_experts))
+            # the bf16 gap at lifted capacity, reported: router flips only
+            bf16 = serve_family(cfg.replace(moe=lift), dev, prompts)
+            line["bf16_lifted_capacity_gap"] = {
+                "capacity_factor": lift.capacity_factor,
+                **{k: bf16[k] for k in (
+                    "requests_done", "all_logits_finite",
+                    "prefills_with_wrong_launches",
+                    "decode_steps_launching_a_kernel", "peak_memory_gb",
+                    "ok")},
+                "note": "reported, not gated: bf16 rounds the decode and "
+                        "prefill paths differently and that flips router "
+                        "choices",
+                **{k: bf16["decode_vs_teacher_forced_prefill"][k] for k in (
+                    "max_abs_err", "max_abs_logit", "max_rel_l2",
+                    "top1_agree", "compared")}}
+            del bf16
+            lifted = full.replace(n_layers=MOE_F32_DEPTH[arch],
+                                  compute_dtype="float32", moe=lift)
+            with router_margins() as gaps:
+                f32 = serve_family(lifted, dev, prompts,
+                                   tf_gate=("max_abs_err", TF_F32_ABS))
+            line["f32_lifted_capacity_run"] = {
+                "layers_run": lifted.n_layers,
+                "capacity_factor": lifted.moe.capacity_factor,
+                "router_calls": gaps["calls"],
+                "least_kth_gap": float(torch.stack(gaps["least"]).min()),
+                "tokens_within_1e-6_of_a_tie": int(torch.stack(
+                    gaps["near_ties"]).sum()),
+                **{k: f32[k] for k in (
+                    "compute_dtype", "params", "requests_done",
+                    "all_logits_finite", "prefills_with_wrong_launches",
+                    "decode_steps_launching_a_kernel", "engine_run_seconds",
+                    "tokens_per_s", "peak_memory_gb",
+                    "decode_vs_teacher_forced_prefill", "ok")}}
+            del f32
+            line["moe_layer"] = moe_layer_check(full, dev)
+            line["ok"] = (line["ok"] and line["bf16_lifted_capacity_gap"]["ok"]
+                          and line["f32_lifted_capacity_run"]["ok"]
+                          and line["moe_layer"]["ok"])
         if not dense:           # the decode path held in f32 (TF_F32_ABS)
             f32 = serve_family(cfg.replace(compute_dtype="float32"), dev,
                                prompts, tf_gate=("max_abs_err", TF_F32_ABS))
@@ -4611,7 +4821,7 @@ def main(argv=None) -> int:
         if k["name"] in train_times:
             k["by_path"]["train"]["forward_launch_at_train_shape"] = \
                 train_times[k["name"]]
-    # the remaining dense families and Mamba-1, each from its own run
+    # the remaining dense families, Mamba-1 and MoE, each from its own run
     for arch, entry in lm_family_phases().items():
         attn_entry = next(k for k in kernels
                           if k["name"] == "flash_attention")

@@ -6,6 +6,7 @@ from .base import (  # noqa: F401
     ARCHS,
     PORTED,
     ModelConfig,
+    MoEConfig,
     SSMConfig,
     get,
     get_smoke,

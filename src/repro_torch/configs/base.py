@@ -6,9 +6,11 @@ The same frozen dataclasses as the reference, with dtypes kept as names
 architectures whose modules it has (``PORTED``): the dense decoders
 ``h2o-danube-1.8b`` (sliding-window GQA), ``yi-9b`` (GQA),
 ``granite-34b`` (MQA, GELU MLP) and ``qwen1.5-32b`` (qkv biases), the
-hybrid ``zamba2-1.2b`` (Mamba-2 + shared attention) and the pure Mamba-1
-``falcon-mamba-7b``.  Any other known architecture (MoE, VLM, enc-dec)
-raises ``NotImplementedError``.
+MoE decoders ``llama4-scout-17b-a16e`` (16 experts, top-1) and
+``moonshot-v1-16b-a3b`` (64 experts, top-6), the hybrid ``zamba2-1.2b``
+(Mamba-2 + shared attention) and the pure Mamba-1 ``falcon-mamba-7b``.
+Any other known architecture (VLM, enc-dec) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,15 @@ import importlib
 from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                     # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_scale: float = 1.0     # optional logit scaling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +78,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     act: str = "silu"                     # silu (SwiGLU) | gelu
     tie_embeddings: bool = False
-    moe: Optional[dict] = None            # MoE is not ported: always None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # vlm
     cross_every: int = 0
@@ -119,6 +130,8 @@ _MODULES = {
     "yi-9b": "yi_9b",
     "granite-34b": "granite_34b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "zamba2-1.2b": "zamba2_1_2b",
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
@@ -133,7 +146,7 @@ def _module(name: str):
     if name in ARCHS:
         raise NotImplementedError(
             f"{name!r} is not ported yet: the port serves and trains "
-            f"{PORTED}; the other families (MoE, VLM and enc-dec) "
+            f"{PORTED}; the other families (VLM and enc-dec) "
             "wait in ROADMAP.md §1, the module queue")
     raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.models import layers
 from repro_torch.models.transformer import param_specs
 
@@ -64,10 +64,11 @@ def pipeline_config_from_reference(d: dict) -> PipelineConfig:
 
 def model_config_from_reference(d: dict) -> ModelConfig:
     """The port's ``ModelConfig`` for ``dataclasses.asdict(reference)``
-    (unknown fields raise, as above; so does an MoE config, not ported)."""
+    (unknown fields raise, as above, in the ``moe`` and ``ssm`` sub-configs
+    too)."""
     d = dict(d)
     if d.get("moe") is not None:
-        raise NotImplementedError("MoE configs are not ported (ROADMAP.md)")
+        d["moe"] = MoEConfig(**d["moe"])
     if d.get("ssm") is not None:
         d["ssm"] = SSMConfig(**d["ssm"])
     return ModelConfig(**d)

@@ -1,6 +1,7 @@
 """Public model API (``repro/models/model_zoo.py``): ``build(cfg, device=)``
 gives a ``Model`` with ``init``, ``init_master``, ``param_count``,
-``forward``, ``loss``, ``init_cache``, ``prefill`` and ``decode_step``.
+``active_param_count``, ``forward``, ``loss``, ``init_cache``,
+``prefill`` and ``decode_step``.
 
 A ``Model`` runs on one device, the card unless the caller names the CPU
 (``repro_torch.device``).  Its serving parameters are a nested dict of
@@ -51,6 +52,17 @@ class Model:
 
     def param_count(self) -> int:
         return layers.param_count(self.param_specs)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: ``top_k`` of the
+        ``n_experts`` experts a layer)."""
+        total = self.param_count()
+        cfg = self.cfg
+        if cfg.moe is None:
+            return total
+        m = cfg.moe
+        expert_p = 3 * cfg.d_model * m.d_ff * m.n_experts * cfg.n_layers
+        return total - expert_p + expert_p * m.top_k // m.n_experts
 
     # ---- compute ----------------------------------------------------
     def forward(self, params, batch) -> torch.Tensor:

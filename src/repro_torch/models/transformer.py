@@ -8,18 +8,23 @@ stacked leaves.  Sub-block kinds of the ported families:
   attn     pre-norm self-attention (+RoPE, causal, optional sliding window,
            optional qkv biases; GQA, MQA or MHA)
   mlp      pre-norm MLP (SwiGLU, or GELU with biases)
+  moe      pre-norm mixture-of-experts FFN (``moe.py``)
   mamba1   pre-norm Mamba-1 block (the chunked selective scan)
   mamba2   pre-norm Mamba-2 block
   (zamba2's shared attention block is one set of parameters, applied after
    every superblock with a cache entry of its own per application)
 
-Patterns: dense ``("attn", "mlp") x n_layers``; ssm ``("mamba1",) x
-n_layers``; hybrid ``("mamba2",) x share_every [+ shared block] x
-n_super`` plus a tail without the shared block.  The moe, vlm and encdec
-families are not ported.  Three modes share the sub-block code: train (the whole sequence,
-no cache: ``forward_hidden``, ``forward``, ``loss_fn``), prefill (the
-whole prompt, fills the caches from the request offsets) and decode (one
-token per request at per-request positions).  Caches are updated in
+Patterns: dense ``("attn", "mlp") x n_layers``; moe ``("attn", "moe") x
+n_layers``; ssm ``("mamba1",) x n_layers``; hybrid ``("mamba2",) x
+share_every [+ shared block] x n_super`` plus a tail without the shared
+block.  The vlm and encdec families are not ported.  Three modes share
+the sub-block code: train (the whole sequence, no cache:
+``forward_hidden``, ``forward``, ``loss_fn``), prefill (the whole prompt,
+fills the caches from the request offsets) and decode (one token per
+request at per-request positions).  Every pass takes the reference's
+``moe_strategy`` (``moe.apply_moe``); each MoE sub-block appends its
+load-balance loss to the pass's ``moe_aux`` list, which ``forward_hidden``
+sums and prefill and decode drop.  Caches are updated in
 place.  In training each stacked leaf is unbound once a call, and with
 ``cfg.remat`` each superblock runs under ``torch.utils.checkpoint``
 (recomputed in the backward), as the reference remats each scan step.
@@ -35,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import layers
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 
 
@@ -45,6 +51,8 @@ def pattern_for(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...], int]:
     fam = cfg.family
     if fam == "dense":
         return ("attn", "mlp"), cfg.n_layers, (), 0
+    if fam == "moe":
+        return ("attn", "moe"), cfg.n_layers, (), 0
     if fam == "ssm" and cfg.ssm.kind == "mamba1":
         return ("mamba1",), cfg.n_layers, (), 0
     if fam == "hybrid":
@@ -52,8 +60,8 @@ def pattern_for(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...], int]:
         n_super, tail = divmod(cfg.n_layers, k)
         return ("mamba2",) * k, n_super, ("mamba2",) * tail, tail
     raise NotImplementedError(
-        f"family {fam!r} is not ported: the port serves dense, ssm "
-        "(Mamba-1) and hybrid; moe, vlm and encdec wait in ROADMAP.md §1")
+        f"family {fam!r} is not ported: the port serves dense, moe, ssm "
+        "(Mamba-1) and hybrid; vlm and encdec wait in ROADMAP.md §1")
 
 
 def _block_spec(cfg, kind: str) -> Any:
@@ -64,6 +72,9 @@ def _block_spec(cfg, kind: str) -> Any:
     if kind == "mlp":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "mlp": layers.mlp_spec(d, cfg.d_ff, cfg.act)}
+    if kind == "moe":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "moe": moe_lib.moe_spec(cfg)}
     if kind == "mamba1":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "ssm": ssm_lib.mamba1_spec(cfg)}
@@ -134,6 +145,11 @@ def _apply_block(kind: str, bp, x, cfg, ctx, cache):
         return x + y
     if kind == "mlp":
         return x + layers.apply_mlp(bp["mlp"], h, cfg.act)
+    if kind == "moe":
+        y, aux = moe_lib.apply_moe(bp["moe"], h, cfg,
+                                   strategy=ctx["moe_strategy"])
+        ctx["moe_aux"].append(aux)
+        return x + y
     if kind in ("mamba1", "mamba2"):
         fwd = (ssm_lib.mamba1_forward if kind == "mamba1"
                else ssm_lib.mamba2_forward)
@@ -274,7 +290,12 @@ def _stacks(params, cache, cfg, x, ctx):
     return layers.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
 
 
-def prefill(params, batch_inputs, cfg, cache, *, positions=None):
+def _make_ctx(mode, moe_strategy, **kw) -> dict:
+    return {"mode": mode, "moe_strategy": moe_strategy, "moe_aux": [], **kw}
+
+
+def prefill(params, batch_inputs, cfg, cache, *, positions=None,
+            moe_strategy="ep"):
     """Fill the caches for a batch of prompts; returns (last logits f32
     (B, vocab), cache)."""
     params = cast_params(params, cfg)
@@ -283,45 +304,49 @@ def prefill(params, batch_inputs, cfg, cache, *, positions=None):
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
-    ctx = {"mode": "prefill", "positions": positions}
+    ctx = _make_ctx("prefill", moe_strategy, positions=positions)
     x = _stacks(params, cache, cfg, x, ctx)
     logits = layers.logits_out(params["embed"], x[:, -1:])
     return logits[:, 0], cache
 
 
-def decode_step(params, token, cfg, cache, pos, *, ring: bool = False):
+def decode_step(params, token, cfg, cache, pos, *, ring: bool = False,
+                moe_strategy="ep"):
     """One token per request.  token: (B,), pos: (B,).  Returns (logits f32
     (B, vocab), cache)."""
     params = cast_params(params, cfg)
     x = layers.embed_tokens(params["embed"], token[:, None], cfg.cdtype)
-    ctx = {"mode": "decode", "pos": pos, "ring": ring}
+    ctx = _make_ctx("decode", moe_strategy, pos=pos, ring=ring)
     x = _stacks(params, cache, cfg, x, ctx)
     logits = layers.logits_out(params["embed"], x)
     return logits[:, 0], cache
 
 
-def forward_hidden(params, batch_inputs, cfg):
+def forward_hidden(params, batch_inputs, cfg, *, moe_strategy="ep"):
     """Final hidden states (B, S, D) before the unembedding, and the aux
-    metrics (``moe_aux`` is 0: no ported family has experts)."""
+    metrics: ``moe_aux``, the sum over the MoE layers of each layer's
+    load-balance loss (0 for a family without experts)."""
     params = cast_params(params, cfg)
     tokens = batch_inputs["tokens"]
     B, S = tokens.shape
     pattern, n_super, tail, n_tail = pattern_for(cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
-    ctx = {"mode": "train", "positions": positions}
+    ctx = _make_ctx("train", moe_strategy, positions=positions)
     x = _train_stack(cfg, x, params["blocks"], ctx, pattern, n_super,
                      params.get("shared"))
     if n_tail:
         x = _train_stack(cfg, x, params["tail"], ctx, tail, n_tail)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return x, {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                      device=x.device)}
+    aux = (torch.stack(ctx["moe_aux"]).sum() if ctx["moe_aux"] else
+           torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, {"moe_aux": aux}
 
 
-def forward(params, batch_inputs, cfg):
+def forward(params, batch_inputs, cfg, *, moe_strategy="ep"):
     """Teacher-forced logits (B, S, vocab f32) and the aux metrics."""
-    x, aux = forward_hidden(params, batch_inputs, cfg)
+    x, aux = forward_hidden(params, batch_inputs, cfg,
+                            moe_strategy=moe_strategy)
     return layers.logits_out(params["embed"], x), aux
 
 
@@ -335,13 +360,13 @@ def _ce_chunks(S: int, target: int = 8) -> int:
     return c
 
 
-def loss_fn(params, batch, cfg, *, aux_coef: float = 0.01,
+def loss_fn(params, batch, cfg, *, moe_strategy="ep", aux_coef: float = 0.01,
             ce_chunks: int = 8):
     """Next-token cross-entropy, computed in ``_ce_chunks`` sequence chunks
     (the unembedding is the largest activation of a step), masked by
     ``batch["loss_mask"]`` when given.  Returns (loss + aux_coef * moe_aux,
     {"ce", "moe_aux"})."""
-    x, aux = forward_hidden(params, batch, cfg)
+    x, aux = forward_hidden(params, batch, cfg, moe_strategy=moe_strategy)
     targets = batch["targets"]
     B, S = targets.shape
     mask = batch.get("loss_mask")

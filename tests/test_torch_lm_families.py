@@ -143,10 +143,12 @@ _jmamba1_forward = jax.jit(jssm.mamba1_forward, static_argnames=("cfg",))
 
 
 def test_ported_archs_and_the_mamba1_config_round_trip():
-    """``PORTED`` holds the six archs; falcon-mamba-7b's ``SSMConfig``
-    (``kind="mamba1"``, ``dt_rank``, ``chunk``) crosses from the reference
-    field for field, and each family takes its pattern."""
-    assert set(PORTED) == {"h2o-danube-1.8b", "zamba2-1.2b", *NEW_ARCHS}
+    """``PORTED`` holds the eight archs (these four, danube, zamba2 and the
+    two MoE archs of tests/test_torch_lm_moe.py); falcon-mamba-7b's
+    ``SSMConfig`` (``kind="mamba1"``, ``dt_rank``, ``chunk``) crosses from
+    the reference field for field, and each family takes its pattern."""
+    assert set(PORTED) == {"h2o-danube-1.8b", "zamba2-1.2b", *NEW_ARCHS,
+                           "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b"}
     cfg = model_config_from_reference(
         dataclasses.asdict(jget("falcon-mamba-7b")))
     assert cfg == get("falcon-mamba-7b")
