@@ -119,6 +119,23 @@ prefill buckets' lengths held against the plain version under the bf16
 rule and timed beside SDPA and the bound; one layer of falcon's plain
 Mamba-1 scan traced.
 
+The cross-attention families (``lm_context_phases``, phase
+``lm_context_families``): llama-3.2-vision-11b (40 layers, a cross layer
+every 5, 1600 patch tokens through the adapter) and whisper-large-v3 (32
+encoder layers over 1500 frames, 32 decoder layers), each at full width
+and depth in bf16 with seed-0 weights drawn on the card, serving two
+batches of 4 requests (prompts of 128 and 1000 tokens, each request its
+own context) through ``Model.prefill`` and greedy ``Model.decode_step``
+(the engine takes tokens only): prefill ms by length, decode ms a step,
+tokens/s, peak memory, attention launches a prefill (40 / 96) and a
+decode step (0), finite logits, decode logits against fresh prefills of
+the same tokens and context; each cut in depth, f32, served on the card
+and the CPU from the same parameters; the attention kernel in its
+non-causal and cross-length forms (the VLM's cross shape over 1600
+patches, whisper's encoder over 1500 frames and its cross shape, the
+decoders' causal self shapes) held to the plain version under the bf16
+rule and timed beside SDPA and the bound.
+
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
@@ -672,12 +689,15 @@ def mean_row(rows) -> dict:
     return out
 
 
-def attention_bound(B, Hq, Hkv, L, D, itemsize, ops_per_s):
-    """``bound_ms`` of causal self-attention over L positions: q, k, v read
-    and the output written once; 4 * D FLOP for each unmasked (q, k)
-    pair at ``ops_per_s``."""
-    pairs = L * (L + 1) // 2
-    return bound_ms(itemsize * B * L * D * (2 * Hq + 2 * Hkv),
+def attention_bound(B, Hq, Hkv, L, D, itemsize, ops_per_s, *, Lkv=None,
+                    causal=True):
+    """``bound_ms`` of attention of L query rows over ``Lkv`` keys (L by
+    default): q and the output (L rows), k and v (Lkv rows) moved once;
+    4 * D FLOP for each unmasked (q, k) pair at ``ops_per_s``: L (L + 1)
+    / 2 pairs causal (Lkv = L), L * Lkv without the mask."""
+    Lkv = L if Lkv is None else Lkv
+    pairs = L * (L + 1) // 2 if causal else L * Lkv
+    return bound_ms(itemsize * B * D * (2 * Hq * L + 2 * Hkv * Lkv),
                     B * Hq * pairs * 4.0 * D, ops_per_s)
 
 
@@ -696,31 +716,57 @@ def bf16_rule(got, want, v) -> tuple:
     return bool((d <= tol).all()), float(d.max()), int((d > ulp).sum())
 
 
+def logit_gaps(pairs) -> dict:
+    """(want, got) logits, f32 on the CPU, each one or more rows over the
+    vocabulary: the largest |want - got|, the largest |want|, the largest
+    ||want - got|| / ||want|| of a row, the rows whose argmax agrees and
+    the rows compared."""
+    err = scale = rel = 0.0
+    agree = n = 0
+    for want, got in pairs:
+        err = max(err, float((want - got).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        rel = max(rel, float(((want - got).norm(dim=-1)
+                              / want.norm(dim=-1)).max()))
+        agree += int((want.argmax(-1) == got.argmax(-1)).sum())
+        n += want[..., 0].numel()
+    return {"max_abs_err": err, "max_abs_logit": scale, "max_rel_l2": rel,
+            "top1_agree": agree, "compared": n}
+
+
+def anchor_verdict(tokens_card, tokens_cpu, pairs, expected) -> dict:
+    """The CPU anchor's verdict on (CPU, card) decode logits ``pairs``
+    (``logit_gaps``): the tokens equal, ``expected`` logit rows compared,
+    every one within 1e-4 of the CPU's largest |logit|."""
+    g = logit_gaps(pairs)
+    ok = (tokens_card == tokens_cpu and g["compared"] == expected
+          and g["max_abs_err"] <= 1e-4 * g["max_abs_logit"])
+    return {"tokens_card": tokens_card, "tokens_cpu": tokens_cpu,
+            "tokens_equal": tokens_card == tokens_cpu,
+            "decode_logits_compared": g["compared"],
+            "max_abs_err": g["max_abs_err"],
+            "max_abs_logit": g["max_abs_logit"], "tol": "1e-4 of max|logit|",
+            "ok": bool(ok)}
+
+
 def teacher_forced(model, params, probe, reqs) -> dict:
     """Each request's decode-path logits at its first, middle and last
     step (as ``probe`` logged them in the Engine's run) against a fresh
     prefill of the same tokens at their exact length, on the model's
-    device: the largest difference, the largest |logit|, the largest
-    ||decode - prefill|| / ||prefill|| and the steps whose argmax agrees."""
+    device (``logit_gaps``)."""
     import torch
 
-    err = scale = rel = 0.0
-    agree = n = 0
-    for r in reqs:
-        seq = r.prompt + r.output
-        for k in (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1):
-            lg, _ = model.prefill(
-                params, {"tokens": torch.tensor(
-                    [seq[:len(r.prompt) + k]], device=model.device)},
-                model.init_cache(1, SERVE_MAX_LEN))
-            want, got = lg[0].float().cpu(), probe.logits[(r.uid, k)]
-            err = max(err, float((want - got).abs().max()))
-            scale = max(scale, float(want.abs().max()))
-            rel = max(rel, float((want - got).norm() / want.norm()))
-            agree += int(want.argmax() == got.argmax())
-            n += 1
-    return {"max_abs_err": err, "max_abs_logit": scale, "max_rel_l2": rel,
-            "top1_agree": agree, "compared": n}
+    def pairs():
+        for r in reqs:
+            seq = r.prompt + r.output
+            for k in (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1):
+                lg, _ = model.prefill(
+                    params, {"tokens": torch.tensor(
+                        [seq[:len(r.prompt) + k]], device=model.device)},
+                    model.init_cache(1, SERVE_MAX_LEN))
+                yield lg[0].float().cpu(), probe.logits[(r.uid, k)]
+
+    return logit_gaps(pairs())
 
 
 def ssd_work(b, L, H, P, N, G, chunk=128):
@@ -1736,29 +1782,24 @@ def family_cpu_anchor(cfg, dev) -> dict:
                           device=m.device, **kw)
             for m, p in ((card, params), (cpu, params_cpu))]
     (p_card, _, r_card, card_s), (p_cpu, _, r_cpu, cpu_s) = runs
-    tokens_card = [r.output for r in r_card]
-    tokens_cpu = [r.output for r in r_cpu]
     keys = sorted(p_card.logits.keys() & p_cpu.logits.keys())
-    err = max(float((p_card.logits[k] - p_cpu.logits[k]).abs().max())
-              for k in keys)
-    scale = max(float(p_cpu.logits[k].abs().max()) for k in keys)
-    ok = (tokens_card == tokens_cpu and err <= 1e-4 * scale
-          and len(keys) == len(prompts) * ANCHOR_NEW)
+    verdict = anchor_verdict(
+        [r.output for r in r_card], [r.output for r in r_cpu],
+        [(p_cpu.logits[k], p_card.logits[k]) for k in keys],
+        len(prompts) * ANCHOR_NEW)
     return {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
             "tf32": False, "prompt_lengths": list(ANCHOR_PROMPTS),
-            "new_tokens": ANCHOR_NEW, "tokens_card": tokens_card,
-            "tokens_cpu": tokens_cpu, "tokens_equal": tokens_card == tokens_cpu,
-            "decode_logits_compared": len(keys), "max_abs_err": err,
-            "max_abs_logit": scale, "tol": "1e-4 of max|logit|",
+            "new_tokens": ANCHOR_NEW, **verdict,
             "card_seconds": card_s, "cpu_seconds": cpu_s,
-            "seconds": time.perf_counter() - t0, "ok": bool(ok)}
+            "seconds": time.perf_counter() - t0}
 
 
-# substrings of the device kernels' names that a traced MoE prefill and
-# decode step sum (``serve_family(trace=True)``): cuBLAS GEMMs, the
+# substrings of the device kernels' names that a traced prefill and
+# decode step sum (``serve_family(trace=True)``, ``serve_context_family``):
+# cuBLAS GEMMs ("gemm"; "nvjet" names its Hopper GEMM kernels), the
 # attention kernel, element-wise, reductions, gathers / scatters, scans
-TRACE_FOCUS = ("gemm", "flash_attention", "elementwise", "reduce", "index",
-               "scatter", "scan", "sort")
+TRACE_FOCUS = ("gemm", "nvjet", "flash_attention", "elementwise", "reduce",
+               "index", "scatter", "scan", "sort")
 
 
 def serve_family(cfg, dev, prompts, tf_gate=None, trace=False) -> dict:
@@ -2170,6 +2211,468 @@ def lm_family_phases() -> dict:
           "seconds": time.perf_counter() - t_phase})
     if failed:
         raise SystemExit(f"the LM families failed on the card: {failed}")
+    return entries
+
+
+# The cross-attention families (``lm_context_families``), at full width
+# and depth in bf16 with seed-0 weights drawn on the card
+# (reference ``param_count``): llama-3.2-vision-11b's 9.78 B parameters
+# are 19.6 GB of bf16, whisper-large-v3's 1.54 B 3.1 GB.  The engine
+# takes tokens only, as the reference's does, so each serves its traffic
+# through ``Model.prefill`` with the batch's context and greedy
+# ``Model.decode_step``s: a batch of ``SERVE_SLOTS`` requests at each
+# prompt length, each request with its own context, N(0, 1) in the
+# compute dtype (``materialize_inputs``' 0.02 scale would leave the VLM's
+# adapted context, which no norm rescales, too small for its cross layers
+# to move a logit).  The CPU anchor cuts depth only: the VLM to one self
+# and one cross layer (``pattern_for`` asserts n_layers % cross_every ==
+# 0, so 2 layers need cross_every = 2), whisper to 2 decoder and 2
+# encoder layers.
+CONTEXT_FAMILIES = (
+    ("llama-3.2-vision-11b", {"n_layers": 2, "cross_every": 2}),
+    ("whisper-large-v3", {"n_layers": 2, "encoder_layers": 2}),
+)
+CONTEXT_PROMPTS = (128, 1000)
+
+
+def context_inputs(cfg, gen, n_prompt, batch):
+    """A batch of ``batch`` greedy requests of ``n_prompt`` tokens in [1,
+    vocab) and each request's context (``image_embeds`` or ``frames``),
+    N(0, 1) cast to the compute dtype, drawn from ``gen`` on its
+    device."""
+    import torch
+
+    dev = gen.device
+    toks = torch.randint(1, cfg.vocab, (batch, n_prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    if cfg.family == "vlm":
+        key, shape = "image_embeds", (batch, cfg.n_img_tokens, cfg.d_vision)
+    else:
+        key, shape = "frames", (batch, cfg.n_frames, cfg.d_model)
+    ctx = {key: torch.randn(shape, generator=gen, device=dev).to(cfg.cdtype)}
+    return toks, ctx
+
+
+def context_serve(model, params, toks, ctx, new_tokens, max_len, keep=()):
+    """One batch served as a user of the model serves it: ``prefill`` of
+    each request's first n - 1 tokens with its context, then greedy
+    ``decode_step``s from token n - 1, all requests at one position.  The
+    launch counts are zeroed just before each call and read just after,
+    with the device synchronized around it (host clock).  Returns the
+    prefill's record, the decode steps' records, the new tokens (B,
+    new_tokens) and the f32 logits (on the CPU) of the decode steps in
+    ``keep``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    B, n = toks.shape
+    dev = model.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+    with torch.no_grad():
+        cache = model.init_cache(B, max_len)
+        (lg, _), ms, counts = timed(lambda: model.prefill(
+            params, {"tokens": toks[:, :n - 1], **ctx}, cache))
+        pre = {"tokens": n - 1, "batch": B, "ms": ms, "launches": counts,
+               "finite": bool(torch.isfinite(lg).all())}
+        tok, steps, out, kept = toks[:, n - 1], [], [], {}
+        for i in range(new_tokens):
+            pos = torch.full((B,), n - 1 + i, dtype=torch.int32, device=dev)
+            (lg, _), ms, counts = timed(lambda: model.decode_step(
+                params, tok, cache, pos))
+            steps.append({"ms": ms, "launches": counts,
+                          "finite": bool(torch.isfinite(lg).all())})
+            if i in keep:
+                kept[i] = lg.float().cpu()
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            out.append(tok)
+    return pre, steps, torch.stack(out, dim=1), kept
+
+
+TF_STEPS = (0, SERVE_NEW // 2 - 1, SERVE_NEW - 1)
+
+
+def context_teacher_forced(model, params, toks, ctx, out, kept, max_len):
+    """The decode logits at ``TF_STEPS`` against a fresh prefill of the
+    same tokens (prompt + the new tokens before the step) and context
+    (``logit_gaps``)."""
+    import torch
+
+    seq = torch.cat([toks, out], dim=1)
+    n = toks.shape[1]
+
+    def pairs():
+        for k in TF_STEPS:
+            lg, _ = model.prefill(params, {"tokens": seq[:, :n + k], **ctx},
+                                  model.init_cache(seq.shape[0], max_len))
+            yield lg.float().cpu(), kept[k]
+
+    with torch.no_grad():
+        return {"steps": list(TF_STEPS), **logit_gaps(pairs())}
+
+
+def context_cpu_anchor(cfg, dev) -> dict:
+    """``cfg`` (f32, cut in depth) on ``dev`` and on the CPU from the same
+    parameters, drawn on ``dev`` and copied: a request at each of
+    ``ANCHOR_PROMPTS`` with its own context, ``ANCHOR_NEW`` greedy tokens
+    (``context_serve``).  The tokens must be equal, and every decode
+    step's logits within 1e-4 of the CPU's largest |logit|."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_map
+
+    t0 = time.perf_counter()
+    card = build(cfg, device=dev)
+    params = card.init(torch.Generator(dev).manual_seed(0))
+    cpu = build(cfg, device="cpu")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator(dev).manual_seed(1)
+    keep = tuple(range(ANCHOR_NEW))
+    toks_card, toks_cpu, pairs = [], [], []
+    secs = {"card": 0.0, "cpu": 0.0}
+    for n in ANCHOR_PROMPTS:
+        toks, ctx = context_inputs(cfg, gen, n, 1)
+        runs = {}
+        for name, m, p, put in (("card", card, params, lambda t: t),
+                                ("cpu", cpu, params_cpu, lambda t: t.cpu())):
+            t1 = time.perf_counter()
+            runs[name] = context_serve(
+                m, p, put(toks), {k: put(v) for k, v in ctx.items()},
+                ANCHOR_NEW, 160, keep)
+            secs[name] += time.perf_counter() - t1
+        (_, _, out_card, lg_card), (_, _, out_cpu, lg_cpu) = (
+            runs["card"], runs["cpu"])
+        toks_card.append(out_card[0].tolist())
+        toks_cpu.append(out_cpu[0].tolist())
+        pairs += [(lg_cpu[k], lg_card[k]) for k in keep]
+    return {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+            "cross_every": cfg.cross_every,
+            "compute_dtype": cfg.compute_dtype, "tf32": False,
+            "prompt_lengths": list(ANCHOR_PROMPTS), "new_tokens": ANCHOR_NEW,
+            **anchor_verdict(toks_card, toks_cpu, pairs,
+                             len(ANCHOR_PROMPTS) * ANCHOR_NEW),
+            "card_seconds": secs["card"], "cpu_seconds": secs["cpu"],
+            "seconds": time.perf_counter() - t0}
+
+
+def attention_row(q, k, v, causal, use) -> dict:
+    """The attention kernel on bf16 (q, k, v) against ``ref.attention``
+    under the bf16 rule, timed beside the plain version, SDPA
+    (``enable_gqa=True``) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as attn_mod
+    from repro_torch.kernels import ref
+
+    B, Hq, L, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    b_ms, b_by = attention_bound(B, Hq, Hkv, L, D, 2, BF16_FLOPS_PER_S,
+                                 Lkv=T, causal=causal)
+    got = attn_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ok, err, past = bf16_rule(got, ref.attention(q, k, v, causal=causal), v)
+    del got
+    return {
+        "use": use, "B": B, "L": L, "Lkv": T, "causal": causal,
+        "ragged_q_tile": L % 64 != 0, "ragged_kv_tile": T % 64 != 0,
+        "max_abs_err": err, "elements_beyond_1_ulp": past,
+        "tol": "1 bf16 ulp + 1e-5*max|v|", "ok": ok,
+        "ms": device_ms(lambda: attn_mod.flash_attention(
+            q, k, v, causal=causal)),
+        "plain_ms": device_ms(lambda: ref.attention(
+            q, k, v, causal=causal), n=3),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def context_attention_rows(cfg, dev, gen, name, Lkv, causal, lengths):
+    """``attention_row`` at ``cfg``'s head geometry, (1, Hq, Hkv, L | Lkv,
+    D) bf16 drawn from ``gen`` for each L of ``lengths`` (``Lkv`` None:
+    self-attention over L)."""
+    import torch
+
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rows = []
+    for L in lengths:
+        T = L if Lkv is None else Lkv
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+
+        rows.append(attention_row(randn(1, Hq, L, D), randn(1, Hkv, T, D),
+                                  randn(1, Hkv, T, D), causal, name))
+    return rows
+
+
+def served_attention_rows(model, params, batches) -> list:
+    """``attention_row`` on the inputs the served prefills give the kernel:
+    one more prefill of each batch of ``batches`` ((tokens, context), as
+    served: the first n - 1 tokens) with ``ops.flash_attention`` recorded,
+    the first call of each form (the caller, q's and k's shapes) kept,
+    that is, the first encoder, self and cross layer's q, k and v."""
+    import sys
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    # the caller in models.attention: in a prefill, self_attention is
+    # whisper's encoder
+    use_of = {"self_attention": "encoder", "prefill_attention": "self",
+              "cross_attention": "cross"}
+    seen = {}
+    flash = ops.flash_attention
+
+    def record(q, k, v, *, causal=True, **kw):
+        key = (use_of[sys._getframe(1).f_code.co_name], tuple(q.shape),
+               tuple(k.shape), causal)
+        if key not in seen:
+            seen[key] = (q.clone(), k.clone(), v.clone())
+        return flash(q, k, v, causal=causal, **kw)
+
+    with torch.no_grad(), swapped(ops, "flash_attention", record):
+        for toks, ctx in batches:
+            B, n = toks.shape
+            model.prefill(params, {"tokens": toks[:, :n - 1], **ctx},
+                          model.init_cache(B, SERVE_MAX_LEN))
+    rows = []
+    for (use, _, _, causal), (q, k, v) in seen.items():
+        rows.append(attention_row(q, k, v, causal, use))
+    return rows
+
+
+def serve_context_family(cfg, dev) -> dict:
+    """``cfg`` in bf16 with seed-0 weights drawn on ``dev``: a warm-up,
+    then a batch of ``SERVE_SLOTS`` requests at each of
+    ``CONTEXT_PROMPTS`` (``SERVE_NEW`` greedy tokens each, cache
+    ``SERVE_MAX_LEN``): prefill ms by length, decode ms a step, tokens/s,
+    peak memory, every prefill's and decode step's launches (one
+    attention launch a prefill per self, cross and encoder layer; none a
+    decode step, whose cross-attention is the plain product), finite
+    logits, and the decode logits at ``TF_STEPS`` against fresh prefills
+    (relative L2 within ``TF_BF16_REL_L2``).  Then the attention kernel on
+    the served prefills' own inputs (``served_attention_rows``), and one
+    prefill of the longest batch and one decode step traced
+    (``gpu_trace``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_items
+    from repro_torch.models.transformer import pattern_for
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    weights_gb = sum(t.numel() * t.element_size()
+                     for _, t in tree_items(params)) / 1e9
+    n_params = model.param_count()
+    pattern, n_super, _, _ = pattern_for(cfg)
+    per_prefill = {"flash_attention": n_super * (pattern.count("attn")
+                                                 + pattern.count("cross"))
+                   + cfg.encoder_layers, "ssd_scan": 0}
+    gen = torch.Generator(dev).manual_seed(2)
+    batches = [context_inputs(cfg, gen, n, SERVE_SLOTS)
+               for n in CONTEXT_PROMPTS]
+    context_serve(model, params, *batches[0], 2, SERVE_MAX_LEN)  # warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefills, decodes, runs = [], [], []
+    for toks, ctx in batches:
+        pre, steps, out, kept = context_serve(
+            model, params, toks, ctx, SERVE_NEW, SERVE_MAX_LEN, TF_STEPS)
+        prefills.append(pre)
+        decodes += steps
+        runs.append((toks, ctx, out, kept))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    t1 = time.perf_counter()
+    tfs = [context_teacher_forced(model, params, toks, ctx, out, kept,
+                                  SERVE_MAX_LEN)
+           for toks, ctx, out, kept in runs]
+    tf = {"steps": list(TF_STEPS),
+          **{k: max(t[k] for t in tfs) for k in (
+              "max_abs_err", "max_abs_logit", "max_rel_l2")},
+          **{k: sum(t[k] for t in tfs) for k in ("top1_agree", "compared")},
+          "gate": {"measure": "max_rel_l2", "limit": TF_BF16_REL_L2},
+          "seconds": time.perf_counter() - t1}
+    served = served_attention_rows(model, params, batches)
+    # one prefill of the longest batch and one decode step after it, traced
+    toks, ctx = batches[-1]
+    B, n = toks.shape
+    cache = model.init_cache(B, SERVE_MAX_LEN)
+    pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        profiled = {
+            f"prefill_{n - 1}_batch_{B}": gpu_trace(
+                lambda: model.prefill(params, {"tokens": toks[:, :n - 1],
+                                               **ctx}, cache),
+                f"{cfg.name}_prefill", 1, focus=TRACE_FOCUS),
+            f"decode_step_{B}_slots": gpu_trace(
+                lambda: model.decode_step(params, toks[:, n - 1], cache, pos),
+                f"{cfg.name}_decode", 1, focus=TRACE_FOCUS)}
+    del cache
+    for t in profiled.values():
+        t["device_idle_share_of_wall"] = (1 - t["device_busy_ms"]
+                                          / t["traced_wall_ms"])
+    bad_prefill = [c for c in prefills if c["launches"] != {
+        **{k: 0 for k in c["launches"]}, **per_prefill}]
+    bad_decode = [c for c in decodes if any(c["launches"].values())]
+    finite = all(c["finite"] for c in prefills + decodes)
+    n_tok = sum(out.numel() for _, _, out, _ in runs)
+    run_s = sum(c["ms"] for c in prefills + decodes) / 1e3
+    step_ms = [c["ms"] for c in decodes]
+    ok = (finite and not bad_prefill and not bad_decode
+          and len(decodes) == SERVE_NEW * len(batches)
+          and tf["compared"] == len(TF_STEPS) * SERVE_SLOTS * len(batches)
+          and tf["max_rel_l2"] <= TF_BF16_REL_L2
+          and all(r["ok"] for r in served))
+    return {"model": cfg.name, "family": cfg.family,
+            "layers_run": cfg.n_layers,
+            "encoder_layers_run": cfg.encoder_layers,
+            "cross_every": cfg.cross_every, "pattern": list(pattern),
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+            "d_ff": cfg.d_ff, "act": cfg.act, "norm": cfg.norm,
+            "vocab": cfg.vocab, "context_tokens": (
+                cfg.n_img_tokens if cfg.family == "vlm" else cfg.n_frames),
+            "context_width": (cfg.d_vision if cfg.family == "vlm"
+                              else cfg.d_model),
+            "compute_dtype": cfg.compute_dtype,
+            "params": n_params,
+            "weights_gb": weights_gb, "init_seconds": init_s,
+            "init_peak_memory_gb": init_peak_gb,
+            "requests": SERVE_SLOTS * len(CONTEXT_PROMPTS),
+            "batch": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+            "prompt_lengths": list(CONTEXT_PROMPTS),
+            "new_tokens": SERVE_NEW,
+            "path": "Model.prefill with the context, then greedy "
+                    "Model.decode_step (Engine refuses these families)",
+            "all_logits_finite": finite,
+            "prefill_ms_by_prompt_length": {
+                str(n): {"tokens": c["tokens"], "batch": c["batch"],
+                         "ms": c["ms"]}
+                for n, c in zip(CONTEXT_PROMPTS, prefills)},
+            "expected_launches_per_prefill": per_prefill,
+            "launches_per_prefill": [
+                {k: c["launches"][k] for k in per_prefill}
+                for c in prefills],
+            "prefills_with_wrong_launches": len(bad_prefill),
+            "decode_steps": len(decodes),
+            "decode_steps_launching_a_kernel": len(bad_decode),
+            "launches_in_run": {k: sum(c["launches"][k] for c in
+                                       prefills + decodes)
+                                for k in per_prefill},
+            "decode_step_ms_4_slots_median": float(np.median(step_ms)),
+            "decode_step_ms_4_slots_min": min(step_ms),
+            "run_seconds": run_s, "tokens_generated": n_tok,
+            "tokens_per_s": n_tok / run_s, "peak_memory_gb": peak_gb,
+            "decode_vs_teacher_forced_prefill": tf,
+            "flash_attention_served_shapes": served, "profiled": profiled,
+            "ok": bool(ok)}
+
+
+def lm_context_phases() -> dict:
+    """llama-3.2-vision-11b and whisper-large-v3 on the card
+    (``CONTEXT_FAMILIES``), each after the previous one is freed: the CPU
+    anchor in f32 cut in depth (``context_cpu_anchor``), the serving
+    traffic at full width and depth in bf16 (``serve_context_family``),
+    and the attention kernel at every form the two archs launch it in
+    (the VLM's causal self shape, GQA 32/8, and its cross shape over 1600
+    patch tokens at the buckets' lengths; whisper's non-causal encoder
+    over 1500 frames, its causal decoder self shape and its cross shape
+    over 1500 frames at the buckets' lengths: ``context_attention_rows``;
+    and at the served shapes, batch 4, on the served prefills' inputs:
+    ``served_attention_rows``) held to the plain version under the bf16
+    rule and timed beside SDPA and the bound.  One ``lm_context_families`` line an arch, then the
+    phase's seconds.  Returns each arch's attention launches and times for
+    the ``kernels`` line."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(dev).manual_seed(0)
+    entries, failed = {}, []
+    for arch, cut in CONTEXT_FAMILIES:
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get(arch)
+        anchor = context_cpu_anchor(
+            full.replace(compute_dtype="float32", **cut), dev)
+        line = serve_context_family(full, dev)
+        served = line["flash_attention_served_shapes"]
+        if full.family == "vlm":
+            rows = (context_attention_rows(full, dev, gen, "self", None,
+                                           True, FAMILY_BUCKETS)
+                    + context_attention_rows(full, dev, gen, "cross",
+                                             full.n_img_tokens, False,
+                                             FAMILY_BUCKETS))
+        else:
+            rows = (context_attention_rows(full, dev, gen, "encoder", None,
+                                           False, (full.n_frames,))
+                    + context_attention_rows(full, dev, gen, "self", None,
+                                             True, FAMILY_BUCKETS)
+                    + context_attention_rows(full, dev, gen, "cross",
+                                             full.n_frames, False,
+                                             FAMILY_BUCKETS))
+        timing = {"shape": [1, full.n_heads, full.n_kv_heads, "L | Lkv",
+                            full.hd],
+                  "dtype": "bfloat16", "by_shape": rows,
+                  "mean": mean_row(rows)}
+        line = {"phase": "lm_context_families", "model": arch,
+                "configured_layers": full.n_layers,
+                "cut": "none: full width and depth (the CPU anchor: "
+                       + ", ".join(f"{k}={v}" for k, v in cut.items())
+                       + ", f32)",
+                **line, "flash_attention_new_forms": timing,
+                "cpu_anchor": anchor}
+        line["seconds"] = time.perf_counter() - t_arch
+        line["ok"] = bool(line["ok"] and anchor["ok"]
+                          and all(r["ok"] for r in rows))
+        emit(line)
+        if not line["ok"]:
+            failed.append(arch)
+        entries[arch] = {
+            "launches": line["launches_in_run"]["flash_attention"],
+            "launches_per_prefill":
+                line["expected_launches_per_prefill"]["flash_attention"],
+            "shape": timing["shape"], **timing["mean"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows + served),
+            "by_shape": rows, "served_shapes": served}
+    emit({"phase": "lm_context_families_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise SystemExit(f"the cross-attention families failed on the card: "
+                         f"{failed}")
     return entries
 
 
@@ -4822,10 +5325,13 @@ def main(argv=None) -> int:
             k["by_path"]["train"]["forward_launch_at_train_shape"] = \
                 train_times[k["name"]]
     # the remaining dense families, Mamba-1 and MoE, each from its own run
+    attn_entry = next(k for k in kernels if k["name"] == "flash_attention")
     for arch, entry in lm_family_phases().items():
-        attn_entry = next(k for k in kernels
-                          if k["name"] == "flash_attention")
         attn_entry["by_path"][f"lm_families_{arch}"] = entry
+    # the cross-attention families: the kernel's non-causal and
+    # cross-length forms, each from its own run
+    for arch, entry in lm_context_phases().items():
+        attn_entry["by_path"][f"lm_context_families_{arch}"] = entry
     emit({"phase": "trace_fences", "note": "gpu_trace's checks: traces "
           "taken, whole, taken again; tries that lost primer spins, the "
           "closing spin, or a launch's device record; launches in the "

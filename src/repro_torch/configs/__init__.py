@@ -5,9 +5,12 @@ family-preserving reduced config for CPU tests)."""
 from .base import (  # noqa: F401
     ARCHS,
     PORTED,
+    SHAPES,
     ModelConfig,
     MoEConfig,
+    ShapeSpec,
     SSMConfig,
     get,
     get_smoke,
+    shapes_for,
 )

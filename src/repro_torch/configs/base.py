@@ -2,15 +2,17 @@
 
 The same frozen dataclasses as the reference, with dtypes kept as names
 (``"bfloat16"``, ``"float32"``) and resolved to torch dtypes by
-``ModelConfig.cdtype`` / ``pdtype``.  The port serves and trains the
-architectures whose modules it has (``PORTED``): the dense decoders
+``ModelConfig.cdtype`` / ``pdtype``.  The port has every architecture
+of the reference (``PORTED == ARCHS``): the dense decoders
 ``h2o-danube-1.8b`` (sliding-window GQA), ``yi-9b`` (GQA),
 ``granite-34b`` (MQA, GELU MLP) and ``qwen1.5-32b`` (qkv biases), the
 MoE decoders ``llama4-scout-17b-a16e`` (16 experts, top-1) and
 ``moonshot-v1-16b-a3b`` (64 experts, top-6), the hybrid ``zamba2-1.2b``
-(Mamba-2 + shared attention) and the pure Mamba-1 ``falcon-mamba-7b``.
-Any other known architecture (VLM, enc-dec) raises
-``NotImplementedError``.
+(Mamba-2 + shared attention), the pure Mamba-1 ``falcon-mamba-7b``, the
+VLM ``llama-3.2-vision-11b`` (cross-attention to adapted patch
+embeddings) and the encoder-decoder ``whisper-large-v3`` (layer norm,
+a sinusoidal encoder).  ``SHAPES`` and ``shapes_for`` are the reference's
+assigned workload shapes.
 """
 
 from __future__ import annotations
@@ -111,7 +113,24 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Every architecture id of the reference, and the ones the port has.
+# --- assigned shape matrix ----------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Every architecture id of the reference; the port has them all.
 ARCHS = (
     "whisper-large-v3",
     "llama-3.2-vision-11b",
@@ -126,6 +145,8 @@ ARCHS = (
 )
 
 _MODULES = {
+    "whisper-large-v3": "whisper_large_v3",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "yi-9b": "yi_9b",
     "granite-34b": "granite_34b",
@@ -140,15 +161,9 @@ PORTED = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name in _MODULES:
-        return importlib.import_module(
-            f"repro_torch.configs.{_MODULES[name]}")
-    if name in ARCHS:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: the port serves and trains "
-            f"{PORTED}; the other families (VLM and enc-dec) "
-            "wait in ROADMAP.md §1, the module queue")
-    raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 
 def get(name: str) -> ModelConfig:
@@ -157,3 +172,17 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def shapes_for(cfg: ModelConfig) -> list[str]:
+    """Which assigned shapes run for this arch.
+
+    long_500k needs sub-quadratic attention: it runs for the ssm and
+    hybrid archs and the sliding-window dense archs, and is skipped for
+    the full-attention archs.  Every arch has a decoder, so the decode
+    shapes always apply.
+    """
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid") or cfg.window is not None:
+        out.append("long_500k")
+    return out

@@ -5,9 +5,10 @@
         --requests 16 --device cpu
 
 It serves the reduced (smoke) config of ``--arch`` with weights drawn from
-seed 0, on the card unless ``--device cpu``.  The port serves the archs
-of ``repro_torch.configs.PORTED``; the default stays zamba2-1.2b (the
-reference's is yi-9b).
+seed 0, on the card unless ``--device cpu``.  It serves the archs of
+``repro_torch.configs.PORTED`` but the vlm and encdec families, which the
+engine refuses (its requests carry tokens only, as the reference's do);
+the default stays zamba2-1.2b (the reference's is yi-9b).
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@
 
 The default arch is zamba2-1.2b, as in ``launch/serve.py`` (the
 reference's default is yi-9b); ``--arch`` takes any arch of
-``repro_torch.configs.PORTED``.  It runs on the card unless ``--device cpu``.
+``repro_torch.configs.PORTED`` but the vlm and encdec families, whose
+batches need image embeddings or frames that the token pipeline does not
+make (``Model.loss`` takes them, from ``models.model_zoo.
+materialize_inputs``).  It runs on the card unless ``--device cpu``.
 Parameters are drawn from seed 0 in the param dtype (the f32 master), the
 step-indexed token pipeline feeds the device through a prefetch thread,
 and checkpoints are written asynchronously every ``--ckpt-every`` steps
@@ -86,6 +89,10 @@ def main(argv=None):
             "and train/compression.py wait with sharding/ in ROADMAP.md §1 "
             "item 7")
     cfg = preset_config(args.arch, args.preset)
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"{args.arch} ({cfg.family}) needs image embeddings or frames "
+            "beside its tokens; the token pipeline makes tokens only")
     model = build(cfg, device=args.device)
     dev = model.device
     print(f"arch={args.arch} preset={args.preset} "

@@ -1,10 +1,14 @@
-"""Self-attention for prefill and decode (``repro/models/attention.py``).
+"""Self- and cross-attention for training, prefill and decode
+(``repro/models/attention.py``).
 
-Training (:func:`self_attention`, no cache) and prefill go through
+Training (:func:`self_attention`, no cache), prefill and cross-attention
+over a whole prompt (:func:`cross_attention`: queries from x, keys and
+values projected from a context stream, no mask) go through
 ``kernels.ops.flash_attention`` (the hand kernel on the card, with a plain
 backward; the plain oracle on the CPU).  Decode is one query a request: a
-dense masked product against the cache, in the cache's storage dtype
-with f32 results, for two cache layouts:
+dense product against the cache, in the cache's storage dtype with f32
+results (:func:`decode_cross_attention` reads the context's keys and
+values, unmasked); self-attention's cache takes two layouts:
 
   * linear cache  (max_len slots, write at ``pos``)      — full attention
   * ring cache    (window slots, write at ``pos % W``)   — sliding window
@@ -19,7 +23,7 @@ that every step updates, so a decode step never copies it.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -48,6 +52,20 @@ def self_attn_spec(cfg) -> Any:
         spec["bv"] = P((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
                        init="zeros")
     return spec
+
+
+def cross_attn_spec(cfg, d_ctx: Optional[int] = None) -> Any:
+    """Cross-attention: queries from x, keys/values from a context stream
+    of width ``d_ctx`` (default ``d_model``)."""
+    hd = cfg.hd
+    d_ctx = d_ctx or cfg.d_model
+    return {
+        "wq": P((cfg.d_model, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": P((d_ctx, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": P((d_ctx, cfg.n_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": P((cfg.n_heads, hd, cfg.d_model), ("heads", "head_dim", "embed"),
+                fan_in_dims=(0, 1)),
+    }
 
 
 # --- projections -----------------------------------------------------------
@@ -105,20 +123,40 @@ def _write_at(cache_kv: torch.Tensor, new: torch.Tensor,
 
 # --- training, prefill and decode ------------------------------------------------
 
-def self_attention(params, x, cfg, *, positions=None, causal: bool = True):
-    """Full-sequence attention with no cache (the train path): x (B, S, D)
-    -> (B, S, D), RoPE at ``positions`` (default ``0 .. S-1``), the window
-    from ``cfg.window``."""
+def self_attention(params, x, cfg, *, positions=None, causal: bool = True,
+                   rope: bool = True):
+    """Full-sequence attention with no cache (the train path and whisper's
+    encoder): x (B, S, D) -> (B, S, D), RoPE at ``positions`` (default
+    ``0 .. S-1``) unless ``rope`` is False, the window from
+    ``cfg.window``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q = apply_rope(_proj_q(params, x), positions, cfg.rope_theta)
+    q = _proj_q(params, x)
     k, v = _proj_kv(params, x)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, window=cfg.window)
     return _proj_out(params, out.transpose(1, 2), x.dtype)
+
+
+def cross_attention(params, x, ctx_k, ctx_v, cfg):
+    """x (B, S, D) against the context's keys and values (B, T, Hkv, hd)
+    (:func:`project_context`): no mask, no window -> (B, S, D)."""
+    q = _proj_q(params, x)
+    out = ops.flash_attention(
+        q.transpose(1, 2).contiguous(), ctx_k.transpose(1, 2).contiguous(),
+        ctx_v.transpose(1, 2).contiguous(), causal=False, window=None)
+    return _proj_out(params, out.transpose(1, 2), x.dtype)
+
+
+def project_context(params, ctx, cfg):
+    """The cross-attention keys and values (B, T, Hkv, hd) of a context
+    stream (B, T, d_ctx)."""
+    return _proj_kv(params, ctx)
 
 
 def prefill_attention(params, x, cfg, cache, *, positions) -> tuple:
@@ -142,6 +180,24 @@ def prefill_attention(params, x, cfg, cache, *, positions) -> tuple:
     return _proj_out(params, out.transpose(1, 2), x.dtype), cache
 
 
+def _attend_cached(params, q, kc, vc, cfg, x_dtype, mask=None):
+    """One query a request, q (B, 1, H, hd), against keys and values in the
+    cache layout (B, Hkv, L, hd): products of the cache-dtype operands with
+    f32 results, the keys where ``mask`` (B, L) is False at -inf, the
+    softmax in f32 and p cast to the cache dtype before the second product;
+    then the output projection -> (B, 1, D)."""
+    B = q.shape[0]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q[:, 0].to(kc.dtype).reshape(B, cfg.n_kv_heads, rep, cfg.hd)
+    s = matmul_f32(qg, kc.transpose(-1, -2)) / (cfg.hd ** 0.5)  # (B,G,r,L)
+    if mask is not None:
+        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(vc.dtype)
+    out = matmul_f32(p, vc)                           # (B, Hkv, rep, hd)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.hd).to(x_dtype)
+    return _proj_out(params, out, x_dtype)
+
+
 def decode_attention(params, x, cfg, cache, *, pos, ring: bool = False
                      ) -> tuple:
     """One-token decode: x (B, 1, D), per-request positions pos (B,).
@@ -162,11 +218,6 @@ def decode_attention(params, x, cfg, cache, *, pos, ring: bool = False
     _write_at(cache["k"], k_new.transpose(1, 2), slot)
     _write_at(cache["v"], v_new.transpose(1, 2), slot)
 
-    kc, vc = cache["k"], cache["v"]                   # (B, Hkv, L, hd)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    qg = q[:, 0].to(kc.dtype).reshape(B, cfg.n_kv_heads, rep, cfg.hd)
-    s = matmul_f32(qg, kc.transpose(-1, -2)) / (cfg.hd ** 0.5)  # (B,G,r,L)
-
     idx = torch.arange(L, device=x.device)
     p_ = pos.to(torch.int64)[:, None]
     if ring:
@@ -177,8 +228,14 @@ def decode_attention(params, x, cfg, cache, *, pos, ring: bool = False
     mask = (kv_pos >= 0) & (kv_pos <= p_)
     if cfg.window is not None:
         mask &= (p_ - kv_pos) < cfg.window
-    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1).to(vc.dtype)
-    out = matmul_f32(p, vc)                           # (B, Hkv, rep, hd)
-    out = out.reshape(B, 1, cfg.n_heads, cfg.hd).to(x.dtype)
-    return _proj_out(params, out, x.dtype), cache
+    return _attend_cached(params, q, cache["k"], cache["v"], cfg, x.dtype,
+                          mask), cache
+
+
+def decode_cross_attention(params, x, cfg, ctx_k, ctx_v):
+    """One-token cross-attention: x (B, 1, D) against the context's keys
+    and values in the cache layout (B, Hkv, T, hd), with no mask and no
+    cache write; ``decode_attention``'s arithmetic (cache-dtype operands,
+    f32 results, the softmax in f32, p cast to the cache dtype)."""
+    return _attend_cached(params, _proj_q(params, x), ctx_k, ctx_v, cfg,
+                          x.dtype)

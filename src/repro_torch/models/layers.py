@@ -16,6 +16,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -139,18 +140,32 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The mean and the population variance (``jnp.var``'s, not torch's
+    unbiased default) in f32, ``rsqrt(var + eps)``, cast back to x's
+    dtype, then ``* w + b`` in x's dtype (the reference's rounding
+    order)."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * w.to(dt) + b.to(dt)
+
+
 def norm_spec(d: int, kind: str = "rms") -> Any:
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported (whisper's "
-                                  "layer norm waits with enc-dec)")
-    return {"w": P((d,), ("norm",), init="ones")}
+    if kind == "rms":
+        return {"w": P((d,), ("norm",), init="ones")}
+    return {"w": P((d,), ("norm",), init="ones"),
+            "b": P((d,), ("norm",), init="zeros")}
 
 
 def apply_norm(params: Any, x: torch.Tensor, kind: str = "rms",
                eps: float = 1e-5) -> torch.Tensor:
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported")
-    return rms_norm(x, params["w"], eps)
+    if kind == "rms":
+        return rms_norm(x, params["w"], eps)
+    return layer_norm(x, params["w"], params["b"], eps)
 
 
 # --- rotary embeddings ---------------------------------------------------
@@ -177,6 +192,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Whisper's fixed sinusoidal table (n, d) f32: frequencies in f64 over
+    ``max(half - 1, 1)`` steps, ``[sin, cos]``, then cast."""
+    half = d // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    t = np.arange(n)[:, None] * freq[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
 # --- MLP -----------------------------------------------------------------
 
 def mlp_spec(d_model: int, d_ff: int, act: str = "silu") -> Any:
@@ -188,7 +212,7 @@ def mlp_spec(d_model: int, d_ff: int, act: str = "silu") -> Any:
         }
     if act != "gelu":
         raise ValueError(f"unknown act {act!r}")
-    return {   # plain two-matrix MLP with biases (granite-34b)
+    return {   # plain two-matrix MLP with biases (granite-34b, whisper)
         "wi": P((d_model, d_ff), ("embed", "mlp")),
         "bi": P((d_ff,), ("mlp",), init="zeros"),
         "wo": P((d_ff, d_model), ("mlp", "embed")),

@@ -1,7 +1,10 @@
 """Public model API (``repro/models/model_zoo.py``): ``build(cfg, device=)``
 gives a ``Model`` with ``init``, ``init_master``, ``param_count``,
 ``active_param_count``, ``forward``, ``loss``, ``init_cache``,
-``prefill`` and ``decode_step``.
+``prefill`` and ``decode_step``; ``input_specs``, ``materialize_inputs``
+and ``batch_axes`` describe and draw a workload shape's inputs (the
+modality frontends are stubs: whisper takes precomputed frame embeddings,
+the vision arch precomputed patch embeddings).
 
 A ``Model`` runs on one device, the card unless the caller names the CPU
 (``repro_torch.device``).  Its serving parameters are a nested dict of
@@ -92,3 +95,61 @@ def build(cfg, device=None) -> Model:
     host without one)."""
     return Model(cfg=cfg, param_specs=transformer.param_specs(cfg),
                  device=resolve_device(device))
+
+
+# --- inputs of a workload shape -------------------------------------------------
+
+def batch_axes(cfg, kind: str) -> Any:
+    """Logical axes of each batch input (the reference's sharding rules'
+    names, kept as plain data)."""
+    if kind == "decode":
+        return {"token": ("batch",), "pos": ("batch",)}
+    axes = {"tokens": ("batch", "seq")}
+    if kind == "train":
+        axes["targets"] = ("batch", "seq")
+    if cfg.family == "vlm":
+        axes["image_embeds"] = ("batch", "img_seq", None)
+    if cfg.family == "encdec":
+        axes["frames"] = ("batch", "frames", None)
+    return axes
+
+
+def input_specs(cfg, shape) -> dict:
+    """``(shape, dtype)`` of each input of one workload shape
+    (``configs.ShapeSpec``), as ``transformer.cache_spec`` gives them:
+
+    * train:   {tokens, targets [, image_embeds | frames]}
+    * prefill: {tokens [, image_embeds | frames]}
+    * decode:  {token, pos}  (the cache's come from ``cache_spec``)
+    """
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": ((B,), torch.int32), "pos": ((B,), torch.int32)}
+    out = {"tokens": ((B, S), torch.int32)}
+    if shape.kind == "train":
+        out["targets"] = ((B, S), torch.int32)
+    if cfg.family == "vlm":
+        out["image_embeds"] = ((B, cfg.n_img_tokens, cfg.d_vision),
+                               cfg.cdtype)
+    if cfg.family == "encdec":
+        out["frames"] = ((B, cfg.n_frames, cfg.d_model), cfg.cdtype)
+    return out
+
+
+def materialize_inputs(generator: torch.Generator, cfg, shape) -> dict:
+    """Random inputs matching :func:`input_specs`, drawn from ``generator``
+    on its device in sorted-key order: integers in [0, vocab) for
+    ``tokens``, ``targets`` and ``token`` and in [0, seq_len) otherwise
+    (``pos``); floats ``0.02 * N(0, 1)`` cast to their dtype.  The draws
+    are the port's own, not ``jax.random``'s."""
+    out = {}
+    for k, (shp, dt) in sorted(input_specs(cfg, shape).items()):
+        if dt.is_floating_point:
+            out[k] = (0.02 * torch.randn(shp, generator=generator,
+                                         device=generator.device)).to(dt)
+        else:
+            hi = (cfg.vocab if k in ("tokens", "targets", "token")
+                  else shape.seq_len)
+            out[k] = torch.randint(0, hi, shp, generator=generator,
+                                   dtype=dt, device=generator.device)
+    return out

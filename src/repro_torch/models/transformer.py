@@ -3,31 +3,38 @@
 A model is a *pattern* of sub-blocks repeated ``n_super`` times.  The
 reference runs the repeats as one ``lax.scan`` over stacked parameters;
 here a Python loop takes layer ``i`` as the view ``leaf[i]`` of the same
-stacked leaves.  Sub-block kinds of the ported families:
+stacked leaves.  Sub-block kinds:
 
   attn     pre-norm self-attention (+RoPE, causal, optional sliding window,
            optional qkv biases; GQA, MQA or MHA)
   mlp      pre-norm MLP (SwiGLU, or GELU with biases)
   moe      pre-norm mixture-of-experts FFN (``moe.py``)
+  cross    pre-norm cross-attention against a context stream (vlm, encdec)
   mamba1   pre-norm Mamba-1 block (the chunked selective scan)
   mamba2   pre-norm Mamba-2 block
   (zamba2's shared attention block is one set of parameters, applied after
    every superblock with a cache entry of its own per application)
 
 Patterns: dense ``("attn", "mlp") x n_layers``; moe ``("attn", "moe") x
-n_layers``; ssm ``("mamba1",) x n_layers``; hybrid ``("mamba2",) x
-share_every [+ shared block] x n_super`` plus a tail without the shared
-block.  The vlm and encdec families are not ported.  Three modes share
-the sub-block code: train (the whole sequence, no cache:
+n_layers``; vlm ``("attn", "mlp") x (cross_every - 1) + ("cross", "mlp")``
+x ``n_layers / cross_every``; encdec ``("attn", "cross", "mlp") x
+n_layers`` plus an encoder stack (:func:`encode`); ssm ``("mamba1",) x
+n_layers``; hybrid ``("mamba2",) x share_every [+ shared block] x
+n_super`` plus a tail without the shared block.  The context stream of a
+cross layer is the adapted image embeddings (vlm) or the encoder's
+states (encdec), made once a pass by :func:`_context_stream`.  Three
+modes share the sub-block code: train (the whole sequence, no cache:
 ``forward_hidden``, ``forward``, ``loss_fn``), prefill (the whole prompt,
-fills the caches from the request offsets) and decode (one token per
-request at per-request positions).  Every pass takes the reference's
-``moe_strategy`` (``moe.apply_moe``); each MoE sub-block appends its
-load-balance loss to the pass's ``moe_aux`` list, which ``forward_hidden``
-sums and prefill and decode drop.  Caches are updated in
-place.  In training each stacked leaf is unbound once a call, and with
-``cfg.remat`` each superblock runs under ``torch.utils.checkpoint``
-(recomputed in the backward), as the reference remats each scan step.
+fills the caches from the request offsets, and each cross layer's
+context keys and values) and decode (one token per request at
+per-request positions; a cross layer reads its cached context).  Every
+pass takes the reference's ``moe_strategy`` (``moe.apply_moe``); each MoE
+sub-block appends its load-balance loss to the pass's ``moe_aux`` list,
+which ``forward_hidden`` sums and prefill and decode drop.  Caches are
+updated in place.  In training each stacked leaf is unbound once a call,
+and with ``cfg.remat`` each superblock and each encoder block runs under
+``torch.utils.checkpoint`` (recomputed in the backward), as the reference
+remats each scan step.
 """
 
 from __future__ import annotations
@@ -53,15 +60,20 @@ def pattern_for(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...], int]:
         return ("attn", "mlp"), cfg.n_layers, (), 0
     if fam == "moe":
         return ("attn", "moe"), cfg.n_layers, (), 0
-    if fam == "ssm" and cfg.ssm.kind == "mamba1":
-        return ("mamba1",), cfg.n_layers, (), 0
+    if fam == "vlm":
+        k = cfg.cross_every
+        assert cfg.n_layers % k == 0, (cfg.n_layers, k)
+        pat = ("attn", "mlp") * (k - 1) + ("cross", "mlp")
+        return pat, cfg.n_layers // k, (), 0
+    if fam == "encdec":
+        return ("attn", "cross", "mlp"), cfg.n_layers, (), 0
+    if fam == "ssm":
+        return (cfg.ssm.kind,), cfg.n_layers, (), 0
     if fam == "hybrid":
         k = cfg.share_every
         n_super, tail = divmod(cfg.n_layers, k)
         return ("mamba2",) * k, n_super, ("mamba2",) * tail, tail
-    raise NotImplementedError(
-        f"family {fam!r} is not ported: the port serves dense, moe, ssm "
-        "(Mamba-1) and hybrid; vlm and encdec wait in ROADMAP.md §1")
+    raise ValueError(f"unknown family {fam!r}")
 
 
 def _block_spec(cfg, kind: str) -> Any:
@@ -75,13 +87,16 @@ def _block_spec(cfg, kind: str) -> Any:
     if kind == "moe":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "moe": moe_lib.moe_spec(cfg)}
+    if kind == "cross":
+        return {"norm": layers.norm_spec(d, cfg.norm),
+                "attn": attn.cross_attn_spec(cfg)}
     if kind == "mamba1":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "ssm": ssm_lib.mamba1_spec(cfg)}
     if kind == "mamba2":
         return {"norm": layers.norm_spec(d, cfg.norm),
                 "ssm": ssm_lib.mamba2_spec(cfg)}
-    raise NotImplementedError(f"sub-block {kind!r} is not ported")
+    raise ValueError(f"unknown sub-block {kind!r}")
 
 
 def _shared_attn_cfg(cfg):
@@ -117,6 +132,20 @@ def param_specs(cfg) -> Any:
             "mlp_norm": layers.norm_spec(cfg.d_model, cfg.norm),
             "mlp": layers.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act),
         }
+    if cfg.family == "vlm":
+        spec["adapter"] = {
+            "w": layers.P((cfg.d_vision, cfg.d_model), ("embed", "embed")),
+            "b": layers.P((cfg.d_model,), ("embed",), init="zeros"),
+        }
+    if cfg.family == "encdec":
+        spec["encoder"] = {
+            "blocks": layers.stack(
+                {"0_attn": _block_spec(cfg, "attn"),
+                 "1_mlp": _block_spec(cfg, "mlp")},
+                cfg.encoder_layers,
+            ),
+            "final_norm": layers.norm_spec(cfg.d_model, cfg.norm),
+        }
     return spec
 
 
@@ -150,6 +179,18 @@ def _apply_block(kind: str, bp, x, cfg, ctx, cache):
                                    strategy=ctx["moe_strategy"])
         ctx["moe_aux"].append(aux)
         return x + y
+    if kind == "cross":
+        if ctx["mode"] == "decode":
+            return x + attn.decode_cross_attention(bp["attn"], h, cfg,
+                                                   cache["ck"], cache["cv"])
+        ck, cv = attn.project_context(bp["attn"], ctx["ctx_stream"], cfg)
+        if not train:
+            # the cache layout (B, Hkv, T, hd), as cache_spec gives it; the
+            # reference replaces the entry, the port's caches are written
+            # in place
+            cache["ck"].copy_(ck.transpose(1, 2))
+            cache["cv"].copy_(cv.transpose(1, 2))
+        return x + attn.cross_attention(bp["attn"], h, ck, cv, cfg)
     if kind in ("mamba1", "mamba2"):
         fwd = (ssm_lib.mamba1_forward if kind == "mamba1"
                else ssm_lib.mamba2_forward)
@@ -159,7 +200,7 @@ def _apply_block(kind: str, bp, x, cfg, ctx, cache):
             cache["conv"].copy_(new_state["conv"])
             cache["ssm"].copy_(new_state["ssm"])
         return x + y
-    raise NotImplementedError(f"sub-block {kind!r} is not ported")
+    raise ValueError(f"unknown sub-block {kind!r}")
 
 
 def _apply_shared_attn(sp, x, cfg, ctx, cache):
@@ -209,20 +250,24 @@ def _unstack(tree: Any, n: int) -> list:
 def _train_stack(cfg, x, stacked_params, ctx, pattern, n,
                  shared_params=None):
     """The superblocks of one stack in the train mode, each under
-    ``torch.utils.checkpoint`` when ``cfg.remat`` is set: only its input
-    is kept, and its forward runs again in the backward."""
-    def superblock(x, bp):
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set: only its inputs
+    are kept (x, the layer's parameters and the context stream, passed as
+    an argument so that the recompute reads the same tensor), and its
+    forward runs again in the backward."""
+    def superblock(x, bp, ctx_stream):
+        c = {**ctx, "ctx_stream": ctx_stream}
         for j, kind in enumerate(pattern):
-            x = _apply_block(kind, bp[f"{j}_{kind}"], x, cfg, ctx, None)
+            x = _apply_block(kind, bp[f"{j}_{kind}"], x, cfg, c, None)
         if shared_params is not None:
-            x = _apply_shared_attn(shared_params, x, cfg, ctx, None)
+            x = _apply_shared_attn(shared_params, x, cfg, c, None)
         return x
 
     for bp in _unstack(stacked_params, n):
         if cfg.remat:
-            x = checkpoint(superblock, x, bp, use_reentrant=False)
+            x = checkpoint(superblock, x, bp, ctx["ctx_stream"],
+                           use_reentrant=False)
         else:
-            x = superblock(x, bp)
+            x = superblock(x, bp, ctx["ctx_stream"])
     return x
 
 
@@ -233,9 +278,14 @@ def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
     stacked over the layers of its stack; the tail has no shared entry."""
     pattern, n_super, tail, n_tail = pattern_for(cfg)
 
+    n_ctx = cfg.n_img_tokens if cfg.family == "vlm" else cfg.n_frames
+
     def entry(kind):
         if kind == "attn":
             return attn.cache_spec(cfg, batch, max_len, ring=ring)
+        if kind == "cross":     # the context's keys and values
+            kv = ((batch, cfg.n_kv_heads, n_ctx, cfg.hd), cfg.cdtype)
+            return {"ck": kv, "cv": kv}
         if kind == "mamba1":
             return ssm_lib.mamba1_state_spec(cfg, batch)
         if kind == "mamba2":
@@ -265,6 +315,53 @@ def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
     return layers.tree_map(
         lambda s: torch.zeros(s[0], dtype=s[1], device=device),
         cache_spec(cfg, batch, max_len, ring=ring))
+
+
+# --- the encoder (whisper) and the context stream ------------------------------
+
+def encode(params, frames, cfg):
+    """Audio frames (B, T, d_model) -> encoder states (B, T, d_model) in
+    the compute dtype: the frames plus the sinusoidal table, then the
+    encoder blocks (pre-norm non-causal self-attention without RoPE, then
+    the MLP), then the final norm.  The frontend is a stub: the inputs
+    are precomputed frame embeddings.  With ``cfg.remat`` each block runs
+    under ``torch.utils.checkpoint`` (the reference's remat policy is a
+    memory choice; the values are the same)."""
+    B, T, D = frames.shape
+    x = frames.to(cfg.cdtype) + torch.from_numpy(
+        layers.sinusoidal_positions(T, D)).to(frames.device,
+                                               cfg.cdtype)[None]
+    positions = torch.arange(T, device=frames.device).expand(B, T)
+    enc = params["encoder"]
+
+    def block(x, bp):
+        h = layers.apply_norm(bp["0_attn"]["norm"], x, cfg.norm,
+                              cfg.norm_eps)
+        x = x + attn.self_attention(bp["0_attn"]["attn"], h, cfg,
+                                    positions=positions, causal=False,
+                                    rope=False)
+        h = layers.apply_norm(bp["1_mlp"]["norm"], x, cfg.norm, cfg.norm_eps)
+        return x + layers.apply_mlp(bp["1_mlp"]["mlp"], h, cfg.act)
+
+    for bp in _unstack(enc["blocks"], cfg.encoder_layers):
+        if cfg.remat:
+            x = checkpoint(block, x, bp, use_reentrant=False)
+        else:
+            x = block(x, bp)
+    return layers.apply_norm(enc["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def _context_stream(params, cfg, batch_inputs):
+    """The cross-attention context: the adapted image embeddings (vlm) or
+    the encoder's states (encdec); None for the other families."""
+    if cfg.family == "vlm":
+        img = batch_inputs["image_embeds"].to(cfg.cdtype)
+        a = params["adapter"]
+        return torch.einsum("btd,de->bte", img,
+                            a["w"].to(cfg.cdtype)) + a["b"].to(cfg.cdtype)
+    if cfg.family == "encdec":
+        return encode(params, batch_inputs["frames"], cfg)
+    return None
 
 
 # --- top-level passes -----------------------------------------------------------
@@ -304,7 +401,8 @@ def prefill(params, batch_inputs, cfg, cache, *, positions=None,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
-    ctx = _make_ctx("prefill", moe_strategy, positions=positions)
+    ctx = _make_ctx("prefill", moe_strategy, positions=positions,
+                    ctx_stream=_context_stream(params, cfg, batch_inputs))
     x = _stacks(params, cache, cfg, x, ctx)
     logits = layers.logits_out(params["embed"], x[:, -1:])
     return logits[:, 0], cache
@@ -332,7 +430,8 @@ def forward_hidden(params, batch_inputs, cfg, *, moe_strategy="ep"):
     pattern, n_super, tail, n_tail = pattern_for(cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
-    ctx = _make_ctx("train", moe_strategy, positions=positions)
+    ctx = _make_ctx("train", moe_strategy, positions=positions,
+                    ctx_stream=_context_stream(params, cfg, batch_inputs))
     x = _train_stack(cfg, x, params["blocks"], ctx, pattern, n_super,
                      params.get("shared"))
     if n_tail:

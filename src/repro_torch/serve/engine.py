@@ -11,7 +11,10 @@ nobody reads.  Freed slots readmit from the queue at once.
 
 The engine runs on one device (``repro_torch.device``): the card unless
 ``device="cpu"``; without a card and without ``device=`` it raises.  Its
-cache is updated in place.
+cache is updated in place.  Its requests carry tokens only, as the
+reference's do, so it refuses the families that need a context stream
+(vlm, encdec): they run through ``Model.prefill`` with their
+``image_embeds`` or ``frames`` and ``Model.decode_step``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,11 @@ class Engine:
                  max_len: int = 256, ring: bool = False,
                  prefill_buckets: tuple[int, ...] = (16, 32, 64, 128),
                  seed: int = 0, device=None):
+        if model.cfg.family in ("vlm", "encdec"):
+            raise NotImplementedError(
+                f"the engine's requests carry tokens only; {model.cfg.name} "
+                f"({model.cfg.family}) needs a context stream: call "
+                "Model.prefill with its inputs, then Model.decode_step")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model was built for {model.device}; the "

@@ -35,7 +35,7 @@ from repro.models import transformer as jtransformer  # noqa: E402
 from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
 import repro_torch.kernels as kernels  # noqa: E402
-from repro_torch.configs import PORTED, get  # noqa: E402
+from repro_torch.configs import ARCHS, PORTED, get  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     lm_params_from_reference, model_config_from_reference,
 )
@@ -143,12 +143,16 @@ _jmamba1_forward = jax.jit(jssm.mamba1_forward, static_argnames=("cfg",))
 
 
 def test_ported_archs_and_the_mamba1_config_round_trip():
-    """``PORTED`` holds the eight archs (these four, danube, zamba2 and the
-    two MoE archs of tests/test_torch_lm_moe.py); falcon-mamba-7b's
-    ``SSMConfig`` (``kind="mamba1"``, ``dt_rank``, ``chunk``) crosses from
-    the reference field for field, and each family takes its pattern."""
-    assert set(PORTED) == {"h2o-danube-1.8b", "zamba2-1.2b", *NEW_ARCHS,
-                           "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b"}
+    """``PORTED`` holds every arch of the reference (these four, danube,
+    zamba2, the two MoE archs of tests/test_torch_lm_moe.py and the two
+    cross-attention archs of tests/test_torch_lm_context.py);
+    falcon-mamba-7b's ``SSMConfig`` (``kind="mamba1"``, ``dt_rank``,
+    ``chunk``) crosses from the reference field for field, and each
+    family takes its pattern."""
+    assert set(PORTED) == set(ARCHS) == {
+        "h2o-danube-1.8b", "zamba2-1.2b", *NEW_ARCHS,
+        "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
+        "llama-3.2-vision-11b", "whisper-large-v3"}
     cfg = model_config_from_reference(
         dataclasses.asdict(jget("falcon-mamba-7b")))
     assert cfg == get("falcon-mamba-7b")

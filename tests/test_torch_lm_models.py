@@ -319,13 +319,25 @@ def test_mamba2_long_prefill_takes_the_chunked_scan(rng):
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_and_decode_logits_match_at_f32(rng, arch):
     """SMOKE prefill of 7 tokens, then 4 decode steps: logits within 1e-4
-    of the largest logit (f32, summation order), caches too."""
+    of the largest logit (f32, summation order), caches too.  The vlm and
+    encdec families get the same context in both packages (their
+    ``image_embeds`` or ``frames``, N(0, 1) from the test's generator)."""
     jm, jp, m, p, cfg = _pair(arch)
     B = 2
     toks = rng.integers(0, cfg.vocab, (B, 11)).astype(np.int32)
+    ctx = {}
+    if cfg.family == "vlm":
+        ctx["image_embeds"] = rng.normal(
+            size=(B, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32)
+    if cfg.family == "encdec":
+        ctx["frames"] = rng.normal(
+            size=(B, cfg.n_frames, cfg.d_model)).astype(np.float32)
     jc, c = jm.init_cache(B, 16), m.init_cache(B, 16)
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :7])}, jc)
-    lg, c = m.prefill(p, {"tokens": _t(toks[:, :7])}, c)
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :7]),
+                             **{k: jnp.asarray(v) for k, v in ctx.items()}},
+                        jc)
+    lg, c = m.prefill(p, {"tokens": _t(toks[:, :7]),
+                          **{k: _t(v) for k, v in ctx.items()}}, c)
     outs = [(lg, jl)]
     for t in range(7, 11):
         pos = np.full((B,), t, np.int32)

@@ -143,8 +143,19 @@ def test_moe_configs_round_trip_and_count_as_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "llama-3.2-vision-11b"])
 def test_vlm_and_encdec_still_raise_and_name_the_queue(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get(arch)
+    """The name is from when these two archs were not ported and ``get``
+    raised.  They are now: each config (CONFIG and SMOKE) crosses from the
+    reference and takes the reference's pattern, which at full size is
+    whisper's ("attn", "cross", "mlp") x 32 and the VLM's four self layers
+    and one cross layer x 8."""
+    want = {"whisper-large-v3": (("attn", "cross", "mlp"), 32, (), 0),
+            "llama-3.2-vision-11b": (("attn", "mlp") * 4 + ("cross", "mlp"),
+                                     8, (), 0)}
+    for jcfg, cfg in ((jget(arch), get(arch)),
+                      (jget_smoke(arch), get_smoke(arch))):
+        assert model_config_from_reference(dataclasses.asdict(jcfg)) == cfg
+        assert pattern_for(cfg) == jtransformer.pattern_for(jcfg)
+    assert pattern_for(get(arch)) == want[arch]
 
 
 # --- the module's functions -------------------------------------------------------
