@@ -99,6 +99,19 @@ kernel's launches a step (twice the forward's with remat) and one step
 traced, and the two LM kernels' forward launch at the step's shapes
 beside their bounds (``train_shape_times``).
 
+The sharding layer (``sharding_phases``, phase ``sharding``): on
+``launch.mesh``'s one-device meshes of the card (a world-size-1 nccl
+group on an in-memory store), zamba2-1.2b's full TrainState placed by
+``train_state_shardings`` takes one ``make_train_step`` under
+``activate(mesh, DEFAULT_RULES)``, equal bit for bit to one step from the
+same state unplaced (loss, grad norm, every parameter and moment; 12
+attention and 80 SSD launches; peak memory within 1 GB of ``train``'s);
+a placed 4-slot decode cache (``Model.cache_spec`` under DECODE_RULES)
+takes a prefill and 4 decode steps, equal to the unplaced run; and the
+8-frame 720x1280 batch, ``shard_slots``-placed on the replica mesh, goes
+through ``DetectionPlan.run`` staged and fused, equal to the unplaced
+batch (edges, votes, peaks).
+
 The remaining dense families, Mamba-1 and the MoE family
 (``lm_family_phases``): yi-9b (48 layers), granite-34b (88), qwen1.5-32b
 (60 of 64), falcon-mamba-7b (64), moonshot-v1-16b-a3b (48) and
@@ -147,6 +160,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib
 import json
 import math
 import re
@@ -1648,7 +1662,8 @@ def train_phases() -> dict:
                          f"launches a step {per_step}, in the run "
                          f"{launches}")
     return {"launches": {k: launches[k] for k in want_step},
-            "per_step": {k: per_step[k] for k in want_step}}
+            "per_step": {k: per_step[k] for k in want_step},
+            "peak_memory_gb": peak_gb}
 
 
 def train_shape_times() -> dict:
@@ -1697,6 +1712,331 @@ def train_shape_times() -> dict:
           "train step's shapes, device ms, least of 10",
           "flash_attention": attn, "ssd_scan": ssd})
     return {"flash_attention": attn, "ssd_scan": ssd}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _state_leaves(state) -> dict:
+    """path -> tensor of a TrainState (step, parameters, moments)."""
+    from repro_torch.models.layers import tree_items
+
+    out = {("step",): state.step}
+    for name, tree in (("params", state.params), ("m", state.opt["m"]),
+                       ("v", state.opt["v"])):
+        out.update({(name,) + p: t for p, t in tree_items(tree)})
+    return out
+
+
+def sharding_phases(train_peak_gb: float) -> dict:
+    """The sharding layer on the card (phase ``sharding``): each user's
+    path placed on a one-device mesh (``repro_torch.sharding``,
+    ``launch/mesh.py``) against the same path unplaced, bit for bit.
+
+    (a) zamba2-1.2b at full width and depth, the ``train`` phase's workload
+    (8 x 512 tokens, bf16 over the f32 master, remat): its TrainState
+    placed by ``train_state_shardings`` and its batch by the batch
+    shardings on ``make_host_mesh()`` (no copy), one ``make_train_step``
+    under ``activate(mesh, DEFAULT_RULES)`` against one step from the same
+    state unplaced: loss, grad norm, step, every parameter and moment
+    equal; the kernels' launches a step; the placed step's peak memory
+    within 1 GB of the ``train`` phase's.  The unplaced step's new state
+    waits on the host while the placed step runs.  (b) zamba2-1.2b bf16
+    serving: parameters and a 4-slot cache placed under DECODE_RULES
+    (``param_axes``, ``Model.cache_spec``), a prefill of 4 x 128 tokens
+    and 4 greedy decode steps against the same unplaced: every logit and
+    token equal.  (c) the 8-frame 720x1280 batch ``shard_slots``-placed on
+    ``make_replica_mesh(1)``, through ``DetectionPlan.run`` staged and
+    fused: the result's fields and the votes ``get_lines`` reads equal the
+    unplaced batch's.  Returns each kernel's launches on the placed
+    paths."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeSpec, get
+    from repro_torch.core import HoughConfig, PipelineConfig
+    from repro_torch.core.plan import DetectionPlan
+    from repro_torch.data import (
+        TokenPipelineConfig, TokenStream, scenario_batch,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh, make_replica_mesh
+    from repro_torch.models import build
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import tree_items
+    from repro_torch.sharding import (
+        DECODE_RULES, DEFAULT_RULES, activate, shardings_for_tree,
+    )
+    from repro_torch.sharding.partition import shard_slots
+    from repro_torch.train import (
+        AdamWConfig, distribute_tree, init_train_state, make_train_step,
+        train_state_shardings,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    created_group = not dist.is_initialized()
+    mesh = make_host_mesh()
+    replica_mesh = make_replica_mesh(1)
+    for m in (mesh, replica_mesh):
+        if m.device_type != "cuda":
+            raise SystemExit(f"the sharding phase's mesh {m} is not on the "
+                             "card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before_gb = torch.cuda.memory_allocated() / 1e9
+
+    def same_storage(placed, plain) -> bool:
+        return all(placed[p].to_local().data_ptr() == t.data_ptr()
+                   for p, t in plain.items())
+
+    # --- (a) a placed train step --------------------------------------------
+    t_train = time.perf_counter()
+    args = train_cli.parse_args([*TRAIN_ARGV])
+    cfg = train_cli.preset_config(args.arch, args.preset)
+    model = build(cfg)
+    # warmup 0: the first step's lr is the peak, so the step moves every
+    # parameter
+    step_fn = make_train_step(model, AdamWConfig(
+        peak_lr=args.lr, warmup_steps=0, decay_steps=args.steps))
+    state = init_train_state(
+        model.init_master(torch.Generator(dev).manual_seed(0)))
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(0).items()}
+    n_super = cfg.n_layers // cfg.share_every
+    n_mamba = n_super * cfg.share_every + (cfg.n_layers % cfg.share_every) ** 2
+    per_call = 2 if cfg.remat else 1
+    want_step = {"flash_attention": per_call * n_super,
+                 "ssd_scan": per_call * n_mamba}
+
+    def one_step(s, b):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, met = step_fn(s, b)
+        torch.cuda.synchronize()
+        return (new, met, (time.perf_counter() - t0) * 1e3,
+                ops.launch_counts(),
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    new, met, plain_ms, plain_launches, plain_peak = one_step(state, batch)
+    want = {p: t.cpu() for p, t in _state_leaves(new).items()}
+    want_met = {k: met[k].cpu() for k in ("loss", "grad_norm")}
+    del new, met
+    gc.collect()
+
+    _, shardings = train_state_shardings(model, mesh, DEFAULT_RULES)
+    placed = distribute_tree(state, shardings)
+    shape = ShapeSpec("train", args.seq, args.global_batch, "train")
+    placed_batch = distribute_tree(batch, shardings_for_tree(
+        zoo.batch_axes(cfg, "train"), zoo.input_specs(cfg, shape), mesh,
+        DEFAULT_RULES))
+    no_copy = (same_storage(_state_leaves(placed), _state_leaves(state))
+               and same_storage(placed_batch, batch))
+    with activate(mesh, DEFAULT_RULES):
+        got, got_met, placed_ms, launches, peak_gb = one_step(placed,
+                                                              placed_batch)
+    got_leaves, before = _state_leaves(got), _state_leaves(state)
+    expected = _state_leaves(shardings)
+    unequal = [".".join(p) for p, w in want.items()
+               if not torch.equal(got_leaves[p].to_local(), w.to(dev))]
+    misplaced = [".".join(p) for p, s in expected.items()
+                 if got_leaves[p].placements != s.placements]
+    moved = sum(not torch.equal(got_leaves[p].to_local(), before[p])
+                for p in want if p[0] == "params")
+    metrics_equal = all(torch.equal(got_met[k].cpu(), want_met[k])
+                        for k in want_met)
+    train = {
+        "model": cfg.name, "params": model.param_count(),
+        "tokens": args.global_batch * args.seq,
+        "mesh": {"shape": list(mesh.shape),
+                 "names": list(mesh.mesh_dim_names),
+                 "device_type": mesh.device_type},
+        "placements_sample": {".".join(p): str(s.placements)
+                              for p, s in list(expected.items())[:4]},
+        "placed_without_copy": no_copy,
+        "loss": float(want_met["loss"]),
+        "grad_norm": float(want_met["grad_norm"]),
+        "metrics_bit_equal": metrics_equal,
+        "leaves": len(want), "leaves_unequal": unequal,
+        "leaves_misplaced": misplaced,
+        "parameter_leaves_moved_by_the_step": moved,
+        "launches_placed": {k: launches[k] for k in want_step},
+        "launches_unplaced": {k: plain_launches[k] for k in want_step},
+        "expected_launches": want_step,
+        "step_ms_unplaced": plain_ms, "step_ms_placed": placed_ms,
+        "peak_memory_gb_placed": peak_gb,
+        "peak_memory_gb_unplaced": plain_peak,
+        "train_phase_peak_memory_gb": train_peak_gb,
+        "peak_limit_gb": train_peak_gb + 1.0,
+        "allocated_before_gb": allocated_before_gb,
+        "seconds": time.perf_counter() - t_train}
+    train["ok"] = bool(
+        no_copy and metrics_equal and not unequal and not misplaced
+        and moved > 0
+        and train["launches_placed"] == want_step
+        and train["launches_unplaced"] == want_step
+        and peak_gb <= train_peak_gb + 1.0)
+    del state, placed, got, got_leaves, before, want, batch, placed_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (b) a placed decode ------------------------------------------------
+    t_decode = time.perf_counter()
+    serve_cfg = get("zamba2-1.2b")
+    smodel = build(serve_cfg)
+    params = smodel.init(torch.Generator(dev).manual_seed(0))
+    n_slots, prompt, new_tokens, max_len = 4, 128, 4, 256
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, serve_cfg.vocab, (n_slots, prompt), dtype=np.int32)).to(dev)
+
+    def decode_run(p, cache):
+        ops.reset_launch_counts()
+        logits, cache = smodel.prefill(p, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        prefill_launches = ops.launch_counts()
+        out, toks = [logits], []
+        ops.reset_launch_counts()
+        for i in range(new_tokens):
+            toks.append(out[-1].argmax(-1).to(torch.int32))
+            pos = torch.full((n_slots,), prompt + i, dtype=torch.int32,
+                             device=dev)
+            logits, cache = smodel.decode_step(p, toks[-1], cache, pos)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return out, toks, cache, prefill_launches, ops.launch_counts()
+
+    want_logits, want_toks, want_cache, _, _ = decode_run(
+        params, smodel.init_cache(n_slots, max_len))
+    want_cache = {p: t.clone() for p, t in tree_items(want_cache)}
+    spec, axes = smodel.cache_spec(n_slots, max_len)
+    cache_sh = shardings_for_tree(axes, spec, mesh, DECODE_RULES)
+    plain_cache = smodel.init_cache(n_slots, max_len)
+    cache = distribute_tree(plain_cache, cache_sh)
+    placed_params = distribute_tree(params, shardings_for_tree(
+        smodel.param_axes(), smodel.abstract_params(), mesh, DECODE_RULES))
+    decode_no_copy = (
+        same_storage(dict(tree_items(cache)), dict(tree_items(plain_cache)))
+        and same_storage(dict(tree_items(placed_params)),
+                         dict(tree_items(params))))
+    with activate(mesh, DECODE_RULES):
+        logits, toks, got_cache, pre_l, dec_l = decode_run(placed_params,
+                                                           cache)
+    logits_equal = all(torch.equal(g, w) for g, w in zip(logits,
+                                                         want_logits))
+    tokens_equal = all(torch.equal(g, w) for g, w in zip(toks, want_toks))
+    cache_equal = all(torch.equal(t.to_local(), want_cache[p])
+                      for p, t in tree_items(got_cache))
+    decode = {
+        "model": serve_cfg.name, "compute_dtype": serve_cfg.compute_dtype,
+        "slots": n_slots, "prompt": prompt, "decode_steps": new_tokens,
+        "max_len": max_len,
+        "cache_placements_sample": {
+            ".".join(p): [str(s.spec), str(s.placements)]
+            for p, s in list(tree_items(cache_sh))[:3]},
+        "placed_without_copy": decode_no_copy,
+        "logits_bit_equal": logits_equal, "tokens_bit_equal": tokens_equal,
+        "cache_bit_equal": cache_equal, "cache_returned_placed":
+            got_cache is cache,
+        "tokens": [t.tolist() for t in toks],
+        "launches_prefill_placed": {k: pre_l[k] for k in want_step},
+        "launches_decode_placed": {k: dec_l[k] for k in want_step},
+        "seconds": time.perf_counter() - t_decode}
+    decode["ok"] = bool(
+        decode_no_copy and logits_equal and tokens_equal and cache_equal
+        and got_cache is cache
+        and decode["launches_prefill_placed"] == {
+            k: v // per_call for k, v in want_step.items()}
+        and not any(dec_l[k] for k in want_step))
+    del smodel, params, placed_params, cache, plain_cache, got_cache
+    del want_cache, want_logits, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (c) a slot-sharded detector batch ----------------------------------
+    t_det = time.perf_counter()
+    H, W = 720, 1280
+    frames, _ = scenario_batch(MAIN_FAMILIES, H, W, seed=0)
+    plain = torch.from_numpy(frames).to(dev)
+    slotted = shard_slots(frames, replica_mesh)
+    auto = HoughConfig(compact=True, max_edges="auto")
+    staged = DetectionPlan.build(PipelineConfig(hough=auto), H, W,
+                                 batch=DEPLOY_BATCH)
+    # core/__init__ exports a function named ``plan``: take the module
+    plan_mod = importlib.import_module("repro_torch.core.plan")
+    votes: list = []
+    own_get_lines = plan_mod.get_lines
+
+    def recording_get_lines(v, **kw):
+        votes.append(v)
+        return own_get_lines(v, **kw)
+
+    detector = {"batch": [DEPLOY_BATCH, H, W],
+                "families": list(MAIN_FAMILIES),
+                "slot_placements": str(slotted.placements),
+                "on_card": slotted.device.type == "cuda"}
+    det_launches = {}
+    with swapped(plan_mod, "get_lines", recording_get_lines):
+        for name, plan in (("staged", staged), ("fused", staged.with_fused())):
+            votes.clear()
+            want_res = plan.run(plain)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            got_res = plan.run(slotted)
+            torch.cuda.synchronize()
+            det_launches[name] = ops.launch_counts()
+            fields = {f: bool(torch.equal(g, w))
+                      for f, g, w in zip(want_res._fields, got_res, want_res)
+                      if w is not None}
+            fields["votes"] = bool(len(votes) == 2
+                                   and torch.equal(votes[0], votes[1]))
+            detector[name] = {"bit_equal": fields,
+                              "launches_placed": det_launches[name],
+                              "valid_lines": int(want_res.valid.sum())}
+    detector["seconds"] = time.perf_counter() - t_det
+    detector["ok"] = bool(
+        detector["on_card"] and str(slotted.placements) == "(Shard(dim=0),)"
+        and all(all(detector[n]["bit_equal"].values())
+                for n in ("staged", "fused"))
+        and det_launches["staged"]["conv2d_gemm"] == 2
+        and det_launches["staged"]["hough_vote"] == 1
+        and det_launches["fused"]["fused_detect"] == 1
+        and det_launches["fused"]["hough_vote"] == 1)
+    del plain, slotted, votes
+    if created_group:
+        dist.destroy_process_group()
+
+    seconds = time.perf_counter() - t_phase
+    ok = train["ok"] and decode["ok"] and detector["ok"]
+    emit({"phase": "sharding", "card": card_line(), "train": train,
+          "decode": decode, "detector": detector, "seconds": seconds,
+          "seconds_limit": 60, "ok": ok})
+    if not ok:
+        raise SystemExit(
+            f"sharding: a placed path left its unplaced run (train "
+            f"{train['ok']}, decode {decode['ok']}, detector "
+            f"{detector['ok']})")
+    launches = {k: {"train_step": train["launches_placed"][k],
+                    "prefill": decode["launches_prefill_placed"][k]}
+                for k in want_step}
+    for name, counts in det_launches.items():
+        for k, n in counts.items():
+            if n:
+                launches.setdefault(k, {})[f"detector_{name}"] = n
+    return launches
 
 
 # The remaining dense families, Mamba-1 and MoE (``lm_family_phases``):
@@ -5319,6 +5659,11 @@ def main(argv=None) -> int:
                 "zamba2_serve": {"launches": k["launches"]},
                 "train": {"launches": train["launches"][k["name"]],
                           "launches_per_step": train["per_step"][k["name"]]}}
+    # the sharding layer: the train step, a decode and the detector batch
+    # placed on one-device meshes, each against its unplaced run
+    for name, by_path in sharding_phases(train["peak_memory_gb"]).items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry.setdefault("by_path", {})["sharding"] = by_path
     train_times = train_shape_times()
     for k in kernels:
         if k["name"] in train_times:
@@ -5362,12 +5707,7 @@ def main(argv=None) -> int:
           "not_whole": [t["name"] for t in TRACES if not t["whole"]]})
     emit({"phase": "wall", "seconds": time.perf_counter() - STARTED})
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

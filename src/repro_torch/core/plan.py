@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partition import local_tree
 
 from .canny import CannyConfig, canny
 from .hough import (
@@ -229,8 +230,11 @@ class DetectionPlan:
         A short batch pads with zero frames (every stage is
         frame-independent) and the result is sliced back.  ``theta_bins``
         (iff the config sets ``theta_band``) and ``corridors`` (iff it sets
-        ``hough.corridors``; shipped as f32) are shared by the batch.
+        ``hough.corridors``; shipped as f32) are shared by the batch.  A
+        slot-sharded batch (``sharding.partition.shard_slots`` on a
+        one-device replica mesh) runs on its local tensor.
         """
+        images = local_tree(images)
         if theta_bins is not None:
             theta_bins = torch.as_tensor(theta_bins, device=images.device)
         if corridors is not None:

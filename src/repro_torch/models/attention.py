@@ -93,19 +93,22 @@ def _proj_out(params, attn, x_dtype):
 
 # --- KV caches ---------------------------------------------------------------
 
-def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
-    """``{"k": (shape, dtype), "v": ...}`` of one attention layer's cache;
-    ``ring=True`` allocates ``window`` slots."""
+def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False
+               ) -> tuple[dict, dict]:
+    """(``{"k": meta, "v": meta}``, their logical axes) of one attention
+    layer's cache; ``ring=True`` allocates ``window`` slots."""
     slots = cfg.window if (ring and cfg.window) else max_len
-    kv = ((batch, cfg.n_kv_heads, slots, cfg.hd), cfg.cdtype)
-    return {"k": kv, "v": kv}
+    kv = (batch, cfg.n_kv_heads, slots, cfg.hd)
+    axes = ("batch", "kv_heads", "cache_seq", "head_dim")
+    return ({k: torch.empty(kv, dtype=cfg.cdtype, device="meta")
+             for k in ("k", "v")}, {"k": axes, "v": axes})
 
 
 def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
                device=None) -> dict:
-    return {k: torch.zeros(shape, dtype=dt, device=device)
-            for k, (shape, dt) in cache_spec(cfg, batch, max_len,
-                                             ring=ring).items()}
+    spec, _ = cache_spec(cfg, batch, max_len, ring=ring)
+    return {k: torch.zeros(m.shape, dtype=m.dtype, device=device)
+            for k, m in spec.items()}
 
 
 def _write_at(cache_kv: torch.Tensor, new: torch.Tensor,

@@ -103,6 +103,18 @@ def materialize(gen: torch.Generator, specs: Any, *, device=None,
     return out
 
 
+def abstract(specs: Any) -> Any:
+    """Shape-and-dtype stand-ins of a P-tree: ``meta`` tensors, no memory."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=torch_dtype(p.dtype),
+                                          device="meta"), specs)
+
+
+def axes_tree(specs: Any) -> Any:
+    """Logical-axes tree of a P-tree (leaves are tuples; feed to the
+    sharding rules)."""
+    return tree_map(lambda p: p.axes, specs)
+
+
 def stack(specs: Any, n: int, axis_name: str = "layers") -> Any:
     """Prepend a stacked-layer dim to every P in the tree."""
     def bump(p: P) -> P:

@@ -1,7 +1,8 @@
 """Public model API (``repro/models/model_zoo.py``): ``build(cfg, device=)``
-gives a ``Model`` with ``init``, ``init_master``, ``param_count``,
-``active_param_count``, ``forward``, ``loss``, ``init_cache``,
-``prefill`` and ``decode_step``; ``input_specs``, ``materialize_inputs``
+gives a ``Model`` with ``init``, ``init_master``, ``abstract_params``,
+``param_axes``, ``param_count``, ``active_param_count``, ``forward``,
+``loss``, ``cache_spec``, ``init_cache``, ``prefill`` and
+``decode_step``; ``input_specs``, ``materialize_inputs``
 and ``batch_axes`` describe and draw a workload shape's inputs (the
 modality frontends are stubs: whisper takes precomputed frame embeddings,
 the vision arch precomputed patch embeddings).
@@ -23,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partition import local_tree
 
 from . import layers, transformer
 
@@ -53,6 +55,15 @@ class Model:
         return transformer.cast_params(
             layers.tree_map(lambda t: t.to(self.device), params), self.cfg)
 
+    def abstract_params(self) -> Any:
+        """The parameters' shapes and dtypes as ``meta`` tensors (no
+        memory)."""
+        return layers.abstract(self.param_specs)
+
+    def param_axes(self) -> Any:
+        """The parameters' logical axes (feed to ``repro_torch.sharding``)."""
+        return layers.axes_tree(self.param_specs)
+
     def param_count(self) -> int:
         return layers.param_count(self.param_specs)
 
@@ -76,15 +87,28 @@ class Model:
         """(loss, {"ce", "moe_aux"}) of ``transformer.loss_fn``."""
         return transformer.loss_fn(params, batch, self.cfg)
 
+    # prefill and decode take plain or placed trees
+    # (``sharding.partition.distribute_tree`` on a one-device mesh) and
+    # run on their local tensors; the caches are written in place, so a
+    # placed cache comes back as it was given, holding the new entries.
     def prefill(self, params, batch, cache, *, positions=None):
-        return transformer.prefill(params, batch, self.cfg, cache,
-                                   positions=positions)
+        logits, _ = transformer.prefill(
+            local_tree(params), local_tree(batch), self.cfg,
+            local_tree(cache), positions=local_tree(positions))
+        return logits, cache
 
     def decode_step(self, params, token, cache, pos, *, ring: bool = False):
-        return transformer.decode_step(params, token, self.cfg, cache, pos,
-                                       ring=ring)
+        logits, _ = transformer.decode_step(
+            local_tree(params), local_tree(token), self.cfg,
+            local_tree(cache), local_tree(pos), ring=ring)
+        return logits, cache
 
     # ---- caches -----------------------------------------------------
+    def cache_spec(self, batch: int, max_len: int, *, ring: bool = False):
+        """(``meta`` tree, logical-axes tree) of the decode cache that
+        :meth:`init_cache` allocates."""
+        return transformer.cache_spec(self.cfg, batch, max_len, ring=ring)
+
     def init_cache(self, batch: int, max_len: int, *, ring: bool = False):
         return transformer.init_cache(self.cfg, batch, max_len, ring=ring,
                                       device=self.device)

@@ -155,13 +155,18 @@ def mamba1_decode(params, x, cfg, state):
     return mamba1_forward(params, x, cfg, state=state)
 
 
-def mamba1_state_spec(cfg, batch: int) -> dict:
-    """``{"conv": (shape, dtype), "ssm": (shape, dtype)}`` of one layer."""
+def mamba1_state_spec(cfg, batch: int) -> tuple[dict, dict]:
+    """(``{"conv": meta, "ssm": meta}``, their logical axes) of one
+    layer."""
     s = cfg.ssm
-    return {
-        "conv": ((batch, s.d_conv - 1, s.d_inner), cfg.cdtype),
-        "ssm": ((batch, s.d_inner, s.d_state), torch.float32),
-    }
+    return (
+        {"conv": torch.empty((batch, s.d_conv - 1, s.d_inner),
+                             dtype=cfg.cdtype, device="meta"),
+         "ssm": torch.empty((batch, s.d_inner, s.d_state),
+                            dtype=torch.float32, device="meta")},
+        {"conv": ("batch", "conv_k", "inner"),
+         "ssm": ("batch", "inner", "state")},
+    )
 
 
 def mamba2_forward(params, x, cfg, *, state=None):
@@ -217,11 +222,16 @@ def _mamba2_step(xh, dt, A, Bg, Cg, h):
     return y, h
 
 
-def mamba2_state_spec(cfg, batch: int) -> dict:
-    """``{"conv": (shape, dtype), "ssm": (shape, dtype)}`` of one layer."""
+def mamba2_state_spec(cfg, batch: int) -> tuple[dict, dict]:
+    """(``{"conv": meta, "ssm": meta}``, their logical axes) of one
+    layer."""
     s = cfg.ssm
     conv_dim = s.d_inner + 2 * s.n_groups * s.d_state
-    return {
-        "conv": ((batch, s.d_conv - 1, conv_dim), cfg.cdtype),
-        "ssm": ((batch, s.n_heads, s.d_state, s.head_dim), torch.float32),
-    }
+    return (
+        {"conv": torch.empty((batch, s.d_conv - 1, conv_dim),
+                             dtype=cfg.cdtype, device="meta"),
+         "ssm": torch.empty((batch, s.n_heads, s.d_state, s.head_dim),
+                            dtype=torch.float32, device="meta")},
+        {"conv": ("batch", "conv_k", "inner"),
+         "ssm": ("batch", "inner_heads", "state", None)},
+    )

@@ -273,9 +273,11 @@ def _train_stack(cfg, x, stacked_params, ctx, pattern, n,
 
 # --- caches ---------------------------------------------------------------------
 
-def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
-    """Nested dict of ``(shape, dtype)`` for the decode cache, each entry
-    stacked over the layers of its stack; the tail has no shared entry."""
+def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False
+               ) -> tuple[dict, dict]:
+    """(``meta`` tree, logical-axes tree) of the decode cache, in the
+    reference's layout: each entry stacked over the layers of its stack
+    (axis ``layers``); the tail has no shared entry."""
     pattern, n_super, tail, n_tail = pattern_for(cfg)
 
     n_ctx = cfg.n_img_tokens if cfg.family == "vlm" else cfg.n_frames
@@ -284,8 +286,10 @@ def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
         if kind == "attn":
             return attn.cache_spec(cfg, batch, max_len, ring=ring)
         if kind == "cross":     # the context's keys and values
-            kv = ((batch, cfg.n_kv_heads, n_ctx, cfg.hd), cfg.cdtype)
-            return {"ck": kv, "cv": kv}
+            kv = (batch, cfg.n_kv_heads, n_ctx, cfg.hd)
+            axes = ("batch", "kv_heads", "img_seq", "head_dim")
+            return ({k: torch.empty(kv, dtype=cfg.cdtype, device="meta")
+                     for k in ("ck", "cv")}, {"ck": axes, "cv": axes})
         if kind == "mamba1":
             return ssm_lib.mamba1_state_spec(cfg, batch)
         if kind == "mamba2":
@@ -293,28 +297,30 @@ def cache_spec(cfg, batch: int, max_len: int, *, ring: bool = False) -> dict:
         return None
 
     def build(pat, n, shared):
-        spec = {}
+        spec, axes = {}, {}
         for i, kind in enumerate(pat):
             e = entry(kind)
             if e is not None:
-                spec[f"{i}_{kind}"] = e
+                spec[f"{i}_{kind}"], axes[f"{i}_{kind}"] = e
         if shared:
-            spec["shared"] = attn.cache_spec(_shared_attn_cfg(cfg), batch,
-                                             max_len, ring=False)
-        return layers.tree_map(lambda s: ((n,) + s[0], s[1]), spec)
+            spec["shared"], axes["shared"] = attn.cache_spec(
+                _shared_attn_cfg(cfg), batch, max_len, ring=False)
+        return (layers.tree_map(lambda m: m.new_empty((n,) + m.shape), spec),
+                layers.tree_map(lambda a: ("layers",) + a, axes))
 
     hybrid = cfg.family == "hybrid"
-    out = {"blocks": build(pattern, n_super, hybrid)}
+    spec, axes = {}, {}
+    spec["blocks"], axes["blocks"] = build(pattern, n_super, hybrid)
     if n_tail:
-        out["tail"] = build(tail, n_tail, False)
-    return out
+        spec["tail"], axes["tail"] = build(tail, n_tail, False)
+    return spec, axes
 
 
 def init_cache(cfg, batch: int, max_len: int, *, ring: bool = False,
                device=None) -> dict:
-    return layers.tree_map(
-        lambda s: torch.zeros(s[0], dtype=s[1], device=device),
-        cache_spec(cfg, batch, max_len, ring=ring))
+    spec, _ = cache_spec(cfg, batch, max_len, ring=ring)
+    return layers.tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                                  device=device), spec)
 
 
 # --- the encoder (whisper) and the context stream ------------------------------

@@ -1,6 +1,6 @@
-"""TrainState: parameters, optimizer moments and step
-(``repro/train/state.py``, without the sharding specs, which wait with
-``sharding/``: ROADMAP.md §1 item 7)."""
+"""TrainState: parameters, optimizer moments and step, with sharding specs
+(``repro/train/state.py``).  ``distribute_tree(state, shardings)`` places
+a state on a one-device mesh (``jax.device_put``), with no copy."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.models.layers import tree_items
+from repro_torch.sharding import AxisRules, DEFAULT_RULES, shardings_for_tree
+from repro_torch.sharding.partition import distribute_tree  # noqa: F401
 
 from .optim import adamw_init
 
@@ -31,3 +33,36 @@ def init_train_state(params: Any, *, compression: bool = False
     device = next(leaf for _, leaf in tree_items(params)).device
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),
                       params, adamw_init(params), None)
+
+
+def train_state_specs(model, *, compression: bool = False):
+    """(abstract TrainState of ``meta`` tensors, axes TrainState-shaped
+    tree)."""
+    if compression:
+        raise NotImplementedError(
+            "the int8 error-feedback state (train/compression.py) is not "
+            "ported: it waits with the collectives slice in ROADMAP.md §1 "
+            "item 7")
+    p_abs = model.abstract_params()
+    p_axes = model.param_axes()
+    abs_state = TrainState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        params=p_abs,
+        opt={"m": p_abs, "v": p_abs},
+        err=None,
+    )
+    axes_state = TrainState(
+        step=(),
+        params=p_axes,
+        opt={"m": p_axes, "v": p_axes},
+        err=None,
+    )
+    return abs_state, axes_state
+
+
+def train_state_shardings(model, mesh, rules: AxisRules = DEFAULT_RULES, *,
+                          compression: bool = False):
+    """(abstract TrainState, its NamedSharding tree) on ``mesh``."""
+    abs_state, axes_state = train_state_specs(model, compression=compression)
+    shardings = shardings_for_tree(axes_state, abs_state, mesh, rules)
+    return abs_state, shardings

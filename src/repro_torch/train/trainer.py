@@ -6,9 +6,12 @@ parameter leaf (``torch.autograd.grad`` on detached copies, so the state's
 tensors never require grad), accumulated over ``n_micro`` microbatches
 (the batch split along its rows, the gradients summed in f32 and scaled
 by ``1 / n_micro``), then one AdamW update.  Every metric is a device
-tensor; the step reads nothing back to the host.  The pod-compressed step
-(``make_train_step_pod_compressed``) needs a multi-pod mesh and waits
-with ``sharding/`` (ROADMAP.md §1 item 7).
+tensor; the step reads nothing back to the host.  A placed state and
+batch (``distribute_tree`` on a one-device mesh) run on their local
+tensors, and the new state comes back placed as the old one was.  The
+pod-compressed step (``make_train_step_pod_compressed``) needs a
+multi-pod mesh and waits with the collectives slice (ROADMAP.md §1
+item 7).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models.layers import tree_map
+from repro_torch.sharding.partition import local_tree, placed_like
 
 from .optim import AdamWConfig, adamw_update
 from .state import TrainState
@@ -77,13 +81,14 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, n_micro: int = 1
     ``moe_aux``, ``grad_norm``, ``lr`` and ``loss`` (device tensors)."""
 
     def train_step(state: TrainState, batch: dict):
+        placed, state, batch = state, local_tree(state), local_tree(batch)
         loss, metrics, grads = _mean_grads(model.loss, state.params, batch,
                                            n_micro)
         new_params, new_opt, opt_metrics = adamw_update(
             grads, state.opt, state.params, state.step, opt_cfg)
         metrics = {**metrics, **opt_metrics, "loss": loss}
-        return TrainState(state.step + 1, new_params, new_opt,
-                          state.err), metrics
+        return placed_like(TrainState(state.step + 1, new_params, new_opt,
+                                      state.err), placed), metrics
 
     return train_step
 
