@@ -93,11 +93,14 @@ the plain versions' autograd on the card (``train_kernel_grads``);
 zamba2-1.2b at full width cut to 10 Mamba-2 layers, f32, two train steps
 on the card against the port's CPU (``train_vs_cpu``); and
 ``launch.train.main`` at full width and depth, bf16 over the f32 master,
-8 steps of 8 x 512 tokens with a checkpoint at step 4 and a ``--resume``
-from it (``train``): losses, ms a warm step, tokens/s, peak memory, each
-kernel's launches a step (twice the forward's with remat) and one step
-traced, and the two LM kernels' forward launch at the step's shapes
-beside their bounds (``train_shape_times``).
+its state placed on the card's (1, 1) host mesh, 8 steps of 8 x 512
+tokens with a checkpoint at step 4 and a ``--resume`` from it
+(``train``): losses, every leaf of the returned and the resumed state a
+DTensor with ``train_state_shardings``' placements, ms a warm step,
+tokens/s, peak memory, each kernel's launches a step (twice the
+forward's with remat) and one step traced, and the two LM kernels'
+forward launch at the step's shapes beside their bounds
+(``train_shape_times``).
 
 The sharding layer (``sharding_phases``, phase ``sharding``): on
 ``launch.mesh``'s one-device meshes of the card (a world-size-1 nccl
@@ -111,6 +114,17 @@ takes a prefill and 4 decode steps, equal to the unplaced run; and the
 8-frame 720x1280 batch, ``shard_slots``-placed on the replica mesh, goes
 through ``DetectionPlan.run`` staged and fused, equal to the unplaced
 batch (edges, votes, peaks).
+
+Elastic restarts (``elastic_phase``, phase ``elastic``): zamba2-1.2b at
+full width cut to one super-block (a ~4.2 GB checkpoint of parameters
+and moments), placed on the host mesh, 8 steps of 8 x 512 tokens under
+``run_with_restarts`` with failures at steps 3 and 6, checkpoints every 2
+steps, the ``meta`` state of ``train_state_specs`` as the template and a
+hook that moves the run to ``make_replica_mesh(1)``: the stats, every
+leaf on the mesh in force before each step, the final state bit-equal to
+the uninterrupted placed run, both kernels' launches the steps run times
+the launches a step; restore ms and GB/s, each ``save_async``'s host
+copy.
 
 The remaining dense families, Mamba-1 and the MoE family
 (``lm_family_phases``): yi-9b (48 layers), granite-34b (88), qwen1.5-32b
@@ -1394,6 +1408,7 @@ def train_phases() -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.models import build
     from repro_torch.models.layers import tree_items, tree_map
+    from repro_torch.sharding.partition import local_tree
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
     from repro_torch.train.optim import adamw_update
 
@@ -1582,18 +1597,21 @@ def train_phases() -> dict:
         run_s = time.perf_counter() - t0
         launches = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        steps = int(state.step)
+        steps = int(local_tree(state.step))
+        args = train_cli.parse_args(argv)
+        cfg = train_cli.preset_config(args.arch, args.preset)
+        model = build(cfg)
+        placement = {"run": host_mesh_placement(model, state)}
         del state
         shutil.rmtree(ckpt / f"step_{steps:08d}")
         t0 = time.perf_counter()
         state, hist_r = train_cli.main(argv + ["--resume"])
         resume_s = time.perf_counter() - t0
+        placement["resumed"] = host_mesh_placement(model, state)
+        state = local_tree(state)
         ckpt_mb = sum(f.stat().st_size for f in ckpt.rglob("*")) / 1e6
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    args = train_cli.parse_args(argv)
-    cfg = train_cli.preset_config(args.arch, args.preset)
-    model = build(cfg)
     step_fn = make_train_step(model, train_cli.optimizer_config(args))
     stream = TokenStream(TokenPipelineConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
@@ -1631,8 +1649,10 @@ def train_phases() -> dict:
                 and step5_rel <= 1e-6
                 and {k: per_step[k] for k in want_step} == want_step
                 and {k: launches[k] for k in want_step}
-                == {k: steps * v for k, v in want_step.items()})
+                == {k: steps * v for k, v in want_step.items()}
+                and all(p["ok"] for p in placement.values()))
     emit({"phase": "train", "argv": argv[:-2] + ["--ckpt", "<tmp>"],
+          "placement": placement,
           "model": cfg.name, "params": model.param_count(),
           "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
           "remat": cfg.remat, "tokens_per_step": tokens,
@@ -1664,6 +1684,42 @@ def train_phases() -> dict:
     return {"launches": {k: launches[k] for k in want_step},
             "per_step": {k: per_step[k] for k in want_step},
             "peak_memory_gb": peak_gb}
+
+
+def misplaced_leaves(state, shardings) -> list:
+    """Paths of a TrainState's leaves that are not DTensors on the card on
+    their sharding's mesh with its placements."""
+    got, want = _state_leaves(state), _state_leaves(shardings)
+    return [".".join(p) for p, sh in want.items()
+            if getattr(got[p], "device_mesh", None) is not sh.mesh
+            or got[p].placements != sh.placements
+            or got[p].to_local().device.type != "cuda"]
+
+
+def host_mesh_placement(model, state) -> dict:
+    """Whether every leaf of a TrainState returned by ``launch.train.main``
+    is a DTensor on the card's (1, 1) ("data", "model") host mesh with the
+    placements that ``train_state_shardings`` gives there (computed on the
+    state's own mesh)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.train import train_state_shardings
+
+    mesh = getattr(state.step, "device_mesh", None)
+    if mesh is None:
+        return {"ok": False, "mesh": None}
+    _, shardings = train_state_shardings(model, mesh)
+    want = _state_leaves(shardings)
+    wrong = misplaced_leaves(state, shardings)
+    shape = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+             "device_type": mesh.device_type}
+    return {"ok": not wrong and shape == {"shape": [1, 1],
+                                          "names": ["data", "model"],
+                                          "device_type": "cuda"},
+            "mesh": shape, "leaves": len(want), "leaves_misplaced": wrong,
+            "sharded_leaves": sum(any(isinstance(pl, Shard)
+                                      for pl in sh.placements)
+                                  for sh in want.values())}
 
 
 def train_shape_times() -> dict:
@@ -2038,6 +2094,219 @@ def sharding_phases(train_peak_gb: float) -> dict:
                 launches.setdefault(k, {})[f"detector_{name}"] = n
     return launches
 
+
+
+# The elastic phase: zamba2-1.2b at full width, cut in depth to one
+# super-block (6 Mamba-2 layers and the shared attention block, no tail)
+# so that a checkpoint of parameters and both moments is ~4.2 GB, not the
+# whole model's 14.7 GB; the train phase's batch (8 x 512 tokens, bf16
+# over the f32 master, remat); 8 steps, failures at steps 3 and 6,
+# checkpoints every 2 steps
+ELASTIC_DEPTH = {"n_layers": 6, "share_every": 6}
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_FAILS = 8, 2, (3, 6)
+
+
+def elastic_phase() -> dict:
+    """Elastic restarts on the card (phase ``elastic``):
+    ``run_with_restarts`` drives the cut zamba2-1.2b's train step from a
+    state placed on ``make_host_mesh()`` by ``train_state_shardings``,
+    with ``state_template`` the ``meta`` state of ``train_state_specs`` and
+    an ``on_restart`` hook that returns shardings on
+    ``make_replica_mesh(1)`` at the first restart and ``None`` at the
+    second.  Checked: the stats; every leaf, after each restart, on the
+    mesh in force with its placements; the final state against an
+    uninterrupted placed run of the same steps on the host mesh, bit for
+    bit; both kernels' launches = steps run x launches a step.  Timed
+    (host clock, synchronized): each restore (files written in this run,
+    so the read is warm), each ``save_async``'s host copy, and the wait
+    for the write before it.  Returns each kernel's launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipelineConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh, make_replica_mesh
+    from repro_torch.models import build
+    from repro_torch.runtime import FaultInjector, run_with_restarts
+    from repro_torch.sharding.partition import local_tree
+    from repro_torch.train import (
+        AdamWConfig, distribute_tree, init_train_state, make_train_step,
+        train_state_shardings, train_state_specs,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    created_group = not dist.is_initialized()
+    host, replica = make_host_mesh(), make_replica_mesh(1)
+    args = train_cli.parse_args([*TRAIN_ARGV])
+    full = get(args.arch)
+    cfg = full.replace(**ELASTIC_DEPTH)
+    model = build(cfg)
+    dev = model.device
+    _, host_sh = train_state_shardings(model, host)
+    _, replica_sh = train_state_shardings(model, replica)
+    template = train_state_specs(model)[0]
+    state0 = distribute_tree(init_train_state(model.init_master(
+        torch.Generator(dev).manual_seed(0))), host_sh)
+    step_fn = make_train_step(model, AdamWConfig(
+        peak_lr=args.lr, warmup_steps=0, decay_steps=ELASTIC_STEPS))
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    n_super = cfg.n_layers // cfg.share_every
+    n_mamba = n_super * cfg.share_every + (cfg.n_layers % cfg.share_every) ** 2
+    per_call = 2 if cfg.remat else 1
+    want_step = {"flash_attention": per_call * n_super,
+                 "ssd_scan": per_call * n_mamba}
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in _state_leaves(local_tree(state0)).values())
+
+    def drive(state, step):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(step).items()}
+        return step_fn(state, batch)[0]
+
+    # the uninterrupted placed run on the host mesh
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    want = state0
+    for s in range(ELASTIC_STEPS):
+        want = drive(want, s)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches = {k: ops.launch_counts()[k] for k in want_step}
+
+    class TimedManager(CheckpointManager):
+        """The store, with each restore and each save's host copy timed
+        apart from the wait for the write before it."""
+
+        def __init__(self, directory):
+            super().__init__(directory, keep=2)
+            self.saves, self.restores = [], []
+
+        def save_async(self, state, step):
+            t0 = time.perf_counter()
+            self.wait()
+            t1 = time.perf_counter()
+            super().save_async(state, step)
+            self.saves.append({"step": step,
+                               "wait_ms": (t1 - t0) * 1e3,
+                               "host_copy_ms":
+                                   (time.perf_counter() - t1) * 1e3})
+
+        def restore_latest(self, target, shardings=None):
+            self.wait()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().restore_latest(target, shardings=shardings)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            self.restores.append({"ms": sec * 1e3, "gb_per_s":
+                                  n_bytes / sec / 1e9})
+            return out
+
+    inj = FaultInjector(fail_at_steps=ELASTIC_FAILS)
+    hook_calls, steps_run, in_force = [], [], [host_sh]
+    misplaced = {}
+
+    def on_restart(restarts):
+        hook_calls.append(restarts)
+        if restarts == 1:
+            in_force.append(replica_sh)
+            return replica_sh
+        return None
+
+    def faulty(state, step):
+        inj.check(step)
+        bad = misplaced_leaves(state, in_force[-1])
+        if bad:
+            misplaced[len(steps_run)] = bad[:4]
+        steps_run.append(step)
+        return drive(state, step)
+
+    ckpt_root = ROOT / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="elastic_ckpt_", dir=ckpt_root))
+    try:
+        mgr = TimedManager(str(ckpt))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, stats = run_with_restarts(
+            init_state=state0, step_fn=faulty, n_steps=ELASTIC_STEPS,
+            ckpt=mgr, ckpt_every=ELASTIC_EVERY, state_template=template,
+            on_restart=on_restart)
+        torch.cuda.synchronize()
+        faulty_s = time.perf_counter() - t0
+        launches = {k: ops.launch_counts()[k] for k in want_step}
+        step_dir = ckpt / f"step_{ELASTIC_STEPS:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    final_misplaced = misplaced_leaves(final, replica_sh)
+    got, ref = _state_leaves(local_tree(final)), _state_leaves(
+        local_tree(want))
+    unequal = [".".join(p) for p, w in ref.items()
+               if not torch.equal(got[p], w)]
+    moved = sum(not torch.equal(ref[p], t) for p, t in
+                _state_leaves(local_tree(state0)).items() if p[0] == "params")
+    replicated = all(sh.placements == (Replicate(),)
+                     for sh in _state_leaves(replica_sh).values())
+    want_stats = {"restarts": 2, "completed_steps": ELASTIC_STEPS,
+                  "resumed_from": [2, 6]}
+    ok = bool(stats == want_stats and hook_calls == [1, 2]
+              and not misplaced and not final_misplaced and replicated
+              and not unequal and moved > 0
+              and plain_launches == {k: ELASTIC_STEPS * v
+                                     for k, v in want_step.items()}
+              and launches == {k: len(steps_run) * v
+                               for k, v in want_step.items()})
+    del final, want, state0, got, ref
+    if created_group:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "elastic", "card": card_line(), "model": cfg.name,
+          "cut": f"n_layers {full.n_layers} -> {cfg.n_layers}, share_every "
+                 f"{cfg.share_every}: one super-block ({n_mamba} Mamba-2 "
+                 "layers and the shared attention block), no tail; full "
+                 "width",
+          "params": model.param_count(),
+          "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+          "remat": cfg.remat, "tokens_per_step": args.global_batch * args.seq,
+          "state_bytes": n_bytes, "checkpoint_bytes": ckpt_bytes,
+          "steps": ELASTIC_STEPS, "ckpt_every": ELASTIC_EVERY,
+          "fail_at": list(ELASTIC_FAILS), "stats": stats,
+          "expected_stats": want_stats, "on_restart_calls": hook_calls,
+          "steps_run": steps_run,
+          "meshes": {"host": list(host.shape), "replica": list(replica.shape)},
+          "misplaced_before_a_step": misplaced,
+          "final_misplaced": final_misplaced,
+          "replica_placements_all_replicate": replicated,
+          "leaves": len(_state_leaves(template)),
+          "leaves_unequal_to_the_uninterrupted_run": unequal,
+          "parameter_leaves_moved": moved,
+          "launches_per_step_expected": want_step,
+          "launches_uninterrupted": plain_launches,
+          "launches_faulty_run": launches,
+          "restores": mgr.restores, "saves": mgr.saves,
+          "uninterrupted_seconds": plain_s, "faulty_run_seconds": faulty_s,
+          "seconds": seconds, "seconds_limit": 60, "ok": ok})
+    if not ok:
+        raise SystemExit(f"elastic: stats {stats}, hook {hook_calls}, "
+                         f"misplaced {misplaced} / {final_misplaced}, "
+                         f"{len(unequal)} leaves unequal, launches "
+                         f"{launches} for {len(steps_run)} steps")
+    return {k: {"launches": launches[k], "steps_run": len(steps_run),
+                "launches_per_step": want_step[k]} for k in want_step}
 
 # The remaining dense families, Mamba-1 and MoE (``lm_family_phases``):
 # each arch at full width, at full depth but qwen1.5-32b's and
@@ -5664,6 +5933,11 @@ def main(argv=None) -> int:
     for name, by_path in sharding_phases(train["peak_memory_gb"]).items():
         entry = next(k for k in kernels if k["name"] == name)
         entry.setdefault("by_path", {})["sharding"] = by_path
+    # elastic restarts: the cut zamba2-1.2b's faulty supervised run, the
+    # counts zeroed just before run_with_restarts and read just after
+    for name, by_path in elastic_phase().items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["by_path"]["elastic"] = by_path
     train_times = train_shape_times()
     for k in kernels:
         if k["name"] in train_times:

@@ -4,11 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --requests 16 --device cpu
 
-It serves the reduced (smoke) config of ``--arch`` with weights drawn from
-seed 0, on the card unless ``--device cpu``.  It serves the archs of
-``repro_torch.configs.PORTED`` but the vlm and encdec families, which the
-engine refuses (its requests carry tokens only, as the reference's do);
-the default stays zamba2-1.2b (the reference's is yi-9b).
+It serves the reduced (smoke) config of ``--arch`` (yi-9b by default, as
+in the reference) with weights drawn from seed 0, on the card unless
+``--device cpu``.  It serves the archs of ``repro_torch.configs.PORTED``
+but the vlm and encdec families, which the engine refuses (its requests
+carry tokens only, as the reference's do).
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ from repro_torch.models import build
 from repro_torch.serve import Engine, Request
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="yi-9b")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=24)
@@ -34,8 +34,11 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     cfg = get_smoke(args.arch)
     model = build(cfg, device=args.device)
     params = model.init(torch.Generator(model.device).manual_seed(0))

@@ -1,23 +1,28 @@
-"""Training driver: the train loop with checkpoints and resume
-(``repro/launch/train.py``, plus ``--device``).
+"""Training entry point: the train loop on a host mesh with checkpoints
+and resume (``repro/launch/train.py``, plus ``--device``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --preset smoke --steps 100 --ckpt /path/to/ckpt --device cpu
+        --arch zamba2-1.2b --preset smoke --steps 100 \\
+        --ckpt /path/to/ckpt --device cpu
 
-The default arch is zamba2-1.2b, as in ``launch/serve.py`` (the
-reference's default is yi-9b); ``--arch`` takes any arch of
-``repro_torch.configs.PORTED`` but the vlm and encdec families, whose
+The default arch is yi-9b, as in the reference; ``--arch`` takes any arch
+of ``repro_torch.configs.PORTED`` but the vlm and encdec families, whose
 batches need image embeddings or frames that the token pipeline does not
 make (``Model.loss`` takes them, from ``models.model_zoo.
 materialize_inputs``).  It runs on the card unless ``--device cpu``.
-Parameters are drawn from seed 0 in the param dtype (the f32 master), the
-step-indexed token pipeline feeds the device through a prefetch thread,
-and checkpoints are written asynchronously every ``--ckpt-every`` steps
-and once at the end, unless the last one already holds that step.  With
-``--resume`` the loop restarts from the latest checkpoint under
-``--ckpt``.  ``--compress-pod`` (int8 error-feedback compression of a
-multi-pod gradient reduction) waits with ``sharding/`` in ROADMAP.md §1
-item 7.
+Parameters are drawn from seed 0 in the param dtype (the f32 master), and
+the state is placed by ``train_state_shardings`` on ``make_host_mesh``
+over the device there is, then trained under ``activate(mesh,
+DEFAULT_RULES)``.  The step-indexed token pipeline feeds the device
+through a prefetch thread, and checkpoints are written asynchronously
+every ``--ckpt-every`` steps and once at the end, unless the last one
+already holds that step.  With ``--resume`` the loop restarts from the
+latest checkpoint under ``--ckpt``, restored into the placed state.  A
+process group that ``make_host_mesh`` made for the run is destroyed when
+the run ends; the returned state's leaves stay DTensors on the mesh, and
+``local_tree`` gives their tensors.  ``--compress-pod`` (int8
+error-feedback compression of a multi-pod gradient reduction) waits with
+the collectives slice, ROADMAP.md §1 item 7.
 """
 
 from __future__ import annotations
@@ -26,12 +31,19 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.configs import ModelConfig, get, get_smoke
 from repro_torch.data import PrefetchLoader, TokenPipelineConfig, TokenStream
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build
-from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+from repro_torch.sharding import DEFAULT_RULES, activate
+from repro_torch.sharding.partition import local_tree
+from repro_torch.train import (
+    AdamWConfig, distribute_tree, init_train_state, make_train_step,
+    train_state_shardings,
+)
 
 
 def preset_config(arch: str, preset: str) -> ModelConfig:
@@ -58,7 +70,7 @@ def optimizer_config(args: argparse.Namespace) -> AdamWConfig:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="yi-9b")
     ap.add_argument("--preset", default="smoke",
                     choices=["smoke", "100m", "full"])
     ap.add_argument("--steps", type=int, default=100)
@@ -79,34 +91,48 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
-    """Run the loop; returns (final TrainState, the logged steps: step,
-    loss, lr, grad_norm, tok_per_s, and ms_per_step since the previous
-    logged step, on the host clock, each logged step read back)."""
+    """Run the loop; returns (final TrainState, placed on the host mesh;
+    the logged steps: step, loss, lr, grad_norm, tok_per_s, and
+    ms_per_step since the previous logged step, on the host clock, each
+    logged step read back)."""
     args = parse_args(argv)
     if args.compress_pod:
         raise NotImplementedError(
             "--compress-pod needs a multi-pod mesh: the pod-compressed step "
-            "and train/compression.py wait with sharding/ in ROADMAP.md §1 "
-            "item 7")
+            "and train/compression.py wait with the collectives slice in "
+            "ROADMAP.md §1 item 7")
     cfg = preset_config(args.arch, args.preset)
     if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
             f"{args.arch} ({cfg.family}) needs image embeddings or frames "
             "beside its tokens; the token pipeline makes tokens only")
     model = build(cfg, device=args.device)
+    created_group = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device=args.device)
+        print(f"arch={args.arch} preset={args.preset} "
+              f"params={model.param_count()/1e6:.1f}M device={model.device} "
+              f"mesh={tuple(mesh.shape)}", flush=True)
+        with activate(mesh, DEFAULT_RULES):
+            return _train(args, cfg, model, mesh)
+    finally:
+        if created_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, model, mesh):
     dev = model.device
-    print(f"arch={args.arch} preset={args.preset} "
-          f"params={model.param_count()/1e6:.1f}M device={dev}", flush=True)
-    opt = optimizer_config(args)
-    state = init_train_state(
-        model.init_master(torch.Generator(dev).manual_seed(0)))
-    step_fn = make_train_step(model, opt, n_micro=args.n_micro)
+    _, state_sh = train_state_shardings(model, mesh)
+    state = distribute_tree(init_train_state(
+        model.init_master(torch.Generator(dev).manual_seed(0))), state_sh)
+    step_fn = make_train_step(model, optimizer_config(args),
+                              n_micro=args.n_micro)
 
     mgr = CheckpointManager(args.ckpt) if args.ckpt else None
     start, saved = 0, None            # saved: the step the store holds
     if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
         state = mgr.restore_latest(state)
-        start = saved = int(state.step)
+        start = saved = int(local_tree(state.step))
         print(f"resumed from step {start}", flush=True)
 
     stream = TokenStream(TokenPipelineConfig(
@@ -142,7 +168,7 @@ def main(argv=None):
     finally:
         loader.close()
         if mgr:
-            final = int(state.step)
+            final = int(local_tree(state.step))
             if saved == final:
                 mgr.wait()
             else:

@@ -9,14 +9,20 @@ under that fault model: a ``WorkerFailure`` rolls the loop back to the
 last checkpoint of the port's store and goes on, up to ``max_restarts``.
 The step function receives the restored state and the step index to
 resume from, so with the step-indexed token pipeline the trajectory after
-a restart is the uninterrupted one, bit for bit.  A restore places each
-leaf on the device of the current state's leaf.
+a restart is the uninterrupted one, bit for bit.
+
+Elasticity: the restore goes into ``state_template`` when one is given
+(``meta`` tensors will do, as ``train_state_specs`` gives them), else into
+the live state, and places its leaves by ``shardings``, or without them as
+the template's leaves are (checkpoint/store.py).  ``on_restart(restarts)``
+may return a new shardings tree, for the mesh the run goes on with; the
+checkpoints know no mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 
@@ -46,6 +52,9 @@ def run_with_restarts(
     ckpt: CheckpointManager,
     ckpt_every: int = 10,
     max_restarts: int = 3,
+    state_template: Optional[Any] = None,
+    shardings: Any = None,
+    on_restart: Optional[Callable[[int], Any]] = None,
 ) -> tuple[Any, dict]:
     """Returns (final_state, stats {restarts, completed_steps,
     resumed_from})."""
@@ -65,8 +74,13 @@ def run_with_restarts(
             restarts += 1
             if restarts > max_restarts:
                 raise
+            if on_restart is not None:
+                new = on_restart(restarts)
+                if new is not None:
+                    shardings = new
             ckpt.wait()
-            state = ckpt.restore_latest(state)
+            template = state_template if state_template is not None else state
+            state = ckpt.restore_latest(template, shardings=shardings)
             step = latest_step(ckpt.directory)
             resumed_from.append(step)
     ckpt.wait()

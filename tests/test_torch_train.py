@@ -44,9 +44,11 @@ from repro_torch.data import (  # noqa: E402
 from repro_torch.kernels import flash_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import build, transformer  # noqa: E402
 from repro_torch.models.layers import tree_items, tree_map  # noqa: E402
+from repro_torch.sharding.partition import local_tree  # noqa: E402
 from repro_torch.runtime.supervisor import (  # noqa: E402
     FaultInjector, WorkerFailure, run_with_restarts,
 )
@@ -582,14 +584,39 @@ def test_run_with_restarts_budget_exceeded(tmp_path):
 
 
 def _cli(*args):
-    return ["--device", "cpu", "--preset", "smoke", "--log-every", "1",
-            *map(str, args)]
+    return ["--device", "cpu", "--arch", "zamba2-1.2b", "--preset", "smoke",
+            "--log-every", "1", *map(str, args)]
+
+
+def _assert_placed_on_the_host_mesh(state):
+    """Every leaf a DTensor on a (1, 1) ("data", "model") CPU mesh with
+    the placements ``train_state_shardings`` gives there."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.sharding.partition import AbstractMesh
+    from repro_torch.train import train_state_shardings
+
+    model = build(get_smoke("zamba2-1.2b"), device="cpu")
+    _, shardings = train_state_shardings(
+        model, AbstractMesh((1, 1), ("data", "model")))
+    got = _flatten_with_paths(state)
+    want = _flatten_with_paths(shardings)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (_, t), (_, sharding) in zip(got, want):
+        assert isinstance(t, DTensor)
+        assert t.device_mesh.mesh_dim_names == ("data", "model")
+        assert tuple(t.device_mesh.shape) == (1, 1)
+        assert t.device_mesh.device_type == "cpu"
+        assert t.placements == sharding.placements
 
 
 def test_cli_resumes_where_an_uninterrupted_run_goes(tmp_path):
     """5 steps with a checkpoint at 3; the step-5 checkpoint removed, a
     ``--resume`` runs steps 4 and 5 from step 3: the same losses and the
-    same final state, bit for bit, as the uninterrupted run."""
+    same final state, bit for bit, as the uninterrupted run.  Both runs
+    return their state placed on the (1, 1) host mesh by
+    ``train_state_shardings``."""
     ck = tmp_path / "ck"
     state_a, hist_a = train_cli.main(_cli("--steps", 5, "--ckpt", ck,
                                           "--ckpt-every", 3))
@@ -602,20 +629,24 @@ def test_cli_resumes_where_an_uninterrupted_run_goes(tmp_path):
     assert [h["step"] for h in hist_b] == [4, 5]
     assert [h["loss"] for h in hist_b] == [h["loss"] for h in hist_a[3:]]
     assert int(state_b.step) == 5 and latest_step(str(ck)) == 5
-    for (path, a), (_, b) in zip(tree_items(state_a.params),
-                                 tree_items(state_b.params)):
+    for state in (state_a, state_b):
+        _assert_placed_on_the_host_mesh(state)
+    for (path, a), (_, b) in zip(tree_items(local_tree(state_a.params)),
+                                 tree_items(local_tree(state_b.params))):
         assert torch.equal(a, b), path
     assert not any(d.endswith(".tmp") for d in os.listdir(ck))
 
 
 def test_cli_module_runs_and_resumes(tmp_path):
-    """``python -m repro_torch.launch.train --device cpu --preset smoke
-    --steps 3``, then ``--steps 5 --resume`` from its checkpoint."""
+    """``python -m repro_torch.launch.train --device cpu --arch zamba2-1.2b
+    --preset smoke --steps 3``, then ``--steps 5 --resume`` from its
+    checkpoint."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     ck = str(tmp_path / "ck")
     base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
-            "cpu", "--preset", "smoke", "--log-every", "1", "--ckpt", ck]
+            "cpu", "--arch", "zamba2-1.2b", "--preset", "smoke",
+            "--log-every", "1", "--ckpt", ck]
     first = subprocess.run(base + ["--steps", "3"], env=env,
                            capture_output=True, text=True, timeout=300)
     assert first.returncode == 0, first.stderr
@@ -649,7 +680,9 @@ def test_cli_presets():
         get_smoke("zamba2-1.2b")
     c = train_cli.preset_config("h2o-danube-1.8b", "100m")
     assert (c.d_model, c.vocab, c.remat) == (512, 8192, False)
-    assert train_cli.parse_args([]).arch == "zamba2-1.2b"
+    # both CLIs default to the reference's arch
+    assert train_cli.parse_args([]).arch == "yi-9b"
+    assert serve_cli.parse_args([]).arch == "yi-9b"
 
 
 def test_loss_mask_and_ce_chunks():
