@@ -126,6 +126,17 @@ the uninterrupted placed run, both kernels' launches the steps run times
 the launches a step; restore ms and GB/s, each ``save_async``'s host
 copy.
 
+Int8 error-feedback compression (``compression_phase``, phase
+``compression``): the gradient tree of one zamba2-1.2b step at the
+``train`` phase's width, depth and shape (12 attention and 80 SSD
+launches), reduced by ``compressed_allreduce_tree`` over a one-card
+``("pod",)`` mesh twice (from zero residuals, then from the first round's):
+the largest leaf, a norm and two bias-like leaves' q, scale, mean and
+residual equal the CPU's bit for bit, every mean within max|g| / 127 of
+its gradient; a compression train state takes 2 steps with ``err``
+unchanged; the reduction's device ms beside its byte bound, one call
+traced, and the int8 wire bytes against an f32 ring all-reduce's.
+
 The remaining dense families, Mamba-1 and the MoE family
 (``lm_family_phases``): yi-9b (48 layers), granite-34b (88), qwen1.5-32b
 (60 of 64), falcon-mamba-7b (64), moonshot-v1-16b-a3b (48) and
@@ -2307,6 +2318,266 @@ def elastic_phase() -> dict:
                          f"{launches} for {len(steps_run)} steps")
     return {k: {"launches": launches[k], "steps_run": len(steps_run),
                 "launches_per_step": want_step[k]} for k in want_step}
+
+
+# The int8 error-feedback compression (``compression_phase``): the leaves
+# held to the CPU bit for bit, each named by its tree path
+COMPRESSION_LEAVES = (("blocks", "0_mamba2", "ssm", "in_proj"),   # largest
+                      ("final_norm", "w"),                        # a norm
+                      ("blocks", "0_mamba2", "ssm", "dt_b"),      # biases
+                      ("blocks", "0_mamba2", "ssm", "conv_b"))
+COMPRESSION_RUNS = 5
+# element-wise operations a gradient element takes: y = g + err, |y|, the
+# max, y / scale, round, clip (2), deq = q * scale, y - deq, the sum's
+# product, the mean's division
+COMPRESSION_OPS = 11
+
+
+def _ulp_gap(got, want) -> int:
+    """The largest gap in ulps (int8: in steps) between two tensors of one
+    dtype, on the host."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    if not got.dtype.is_floating_point:
+        return int((got.int() - want.int()).abs().max()) if got.numel() else 0
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def compression_phase() -> dict:
+    """Int8 error-feedback gradient compression on the card (phase
+    ``compression``): the gradient tree of one zamba2-1.2b step at full
+    width and depth, the ``train`` phase's config and shape (8 x 512
+    tokens, bf16 over the f32 master, remat), through
+    ``trainer._mean_grads``, reduced by ``compressed_allreduce_tree`` over
+    a one-card ``("pod",)`` ``DeviceMesh`` (a world-size-1 nccl group on an
+    in-memory store) from an ``init_compression`` state, then again from
+    the residuals it left.  Checked: on the leaves of
+    ``COMPRESSION_LEAVES``, the second round's q, scale, mean and residual
+    equal the CPU's on the same gradient and residual, bit for bit; over
+    every leaf, the first round's mean within max|g| / 127 of the
+    gradient; ``init_train_state(compression=True)`` on the card gives f32
+    zeros like every parameter, and a state carrying the first round's
+    residuals takes 2 ``make_train_step``s with ``err`` bit-unchanged.
+    Timed: ms of the tree's reduction (CUDA events around a synchronized
+    call, median of ``COMPRESSION_RUNS``; the host's launches included),
+    its device time queued behind a spin that hides them (least of 3),
+    both beside its bound (the bytes it must move at the HBM rate), one
+    call traced (GPU activities, busy ms); the wire bytes
+    against an f32 ring all-reduce as the reference's docstring counts
+    them.  Returns the kernels' launches in the gradient step."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data import TokenPipelineConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_items
+    from repro_torch.sharding import activate
+    from repro_torch.train import (
+        AdamWConfig, compress_decompress, compressed_allreduce_tree,
+        init_compression, init_train_state, make_train_step,
+    )
+    from repro_torch.train import compression as comp
+    from repro_torch.train.trainer import _mean_grads
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", 0)
+    created_group = not dist.is_initialized()
+    if created_group:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    P = mesh.size()
+    args = train_cli.parse_args([*TRAIN_ARGV])
+    cfg = train_cli.preset_config(args.arch, args.preset)
+    model = build(cfg)
+    params = model.init_master(torch.Generator(dev).manual_seed(0))
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(s).items()} for s in range(2)]
+    n_super = cfg.n_layers // cfg.share_every
+    n_mamba = n_super * cfg.share_every + (cfg.n_layers % cfg.share_every) ** 2
+    per_call = 2 if cfg.remat else 1
+    want_step = {"flash_attention": per_call * n_super,
+                 "ssd_scan": per_call * n_mamba}
+
+    # --- the gradients of one step -----------------------------------------
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, _, grads = _mean_grads(model.loss, params, batches[0], 1)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = {k: ops.launch_counts()[k] for k in want_step}
+    flat = dict(tree_items(grads))
+    n_elems = sum(g.numel() for g in flat.values())
+
+    # --- two rounds of the reduction -----------------------------------------
+    st0 = init_compression(grads)
+    zeros_ok = all(e.dtype == torch.float32 and e.device == dev
+                   and e.shape == flat[p].shape and not e.any()
+                   for p, e in tree_items(st0.err))
+    with activate(mesh):
+        mean1, st1 = compressed_allreduce_tree(grads, st0, "pod")
+        mean2, st2 = compressed_allreduce_tree(grads, st1, "pod")
+    torch.cuda.synchronize()
+    del st0
+    m1, e1 = dict(tree_items(mean1)), dict(tree_items(st1.err))
+    m2, e2 = dict(tree_items(mean2)), dict(tree_items(st2.err))
+    # over every leaf: the first round's mean within max|g| / 127
+    worst = max(((float((m1[p] - g).abs().max())
+                  / max(float(g.abs().max()) / 127.0, 1e-30)), p)
+                for p, g in flat.items())
+    residual_nonzero = sum(bool(e.any()) for e in e1.values())
+    del mean1, m1
+    # the named leaves against the CPU (second round: a nonzero residual)
+    leaves = {}
+    for p in COMPRESSION_LEAVES:
+        g, e = flat[p], e1[p]
+        q, s = comp._quantize(g + e)
+        g_cpu, e_cpu = g.cpu(), e.cpu()
+        q_cpu, s_cpu = comp._quantize(g_cpu + e_cpu)
+        deq_cpu, err_cpu = compress_decompress(g_cpu, e_cpu)
+        gaps = {"q": _ulp_gap(q, q_cpu), "scale": _ulp_gap(s, s_cpu),
+                "mean": _ulp_gap(m2[p], deq_cpu),
+                "residual": _ulp_gap(e2[p], err_cpu)}
+        leaves[".".join(p)] = {
+            "shape": list(g.shape), "max_abs_grad": float(g.abs().max()),
+            "scale": float(s), "ulp_gaps": gaps,
+            "bit_equal": not any(gaps.values())}
+    del mean2, st2, m2, e2
+
+    # --- time: the tree's reduction from the residuals of round 1 ----------
+    def reduce_tree():
+        with activate(mesh):
+            return compressed_allreduce_tree(grads, st1, "pod")
+
+    ms = []
+    for _ in range(COMPRESSION_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = reduce_tree()
+        end.record()
+        end.synchronize()
+        ms.append({"events_ms": start.elapsed_time(end),
+                   "host_ms": (time.perf_counter() - t0) * 1e3})
+        del out
+    # the device's own time: the call queued behind a ~0.2 s spin that
+    # hides the host's ~2000 launches
+    spun_ms = device_ms(lambda: reduce_tree(), n=3, spin=400_000_000)
+    traced_call = gpu_trace(lambda: reduce_tree(), "compression", 1,
+                            focus=("nccl", "elementwise", "reduce"))
+    # the bytes it must move: grad + err read (f32), mean + err written
+    # (f32), the int8 payload written, and the P = 1 gather (the payload
+    # read and written once more); each leaf's f32 scale in and out
+    n_leaves = len(flat)
+    moved = {"f32_in": 8 * n_elems, "f32_out": 8 * n_elems,
+             "int8_payload": n_elems, "gather": 2 * P * n_elems,
+             "scales": 3 * 4 * P * n_leaves}
+    n_bytes = sum(moved.values())
+    bound, bound_by = bound_ms(n_bytes, COMPRESSION_OPS * n_elems)
+    events = [r["events_ms"] for r in ms]
+    median_ms = float(np.median(events))
+    # wire bytes as the reference's docstring counts them: P x (n/4 + 4)
+    # for the int8 gather, ~2n for an f32 ring all-reduce (n f32 bytes)
+    wire = {f"P={p}": {"int8_all_gather": p * (n_elems + 4 * n_leaves),
+                       "f32_ring_all_reduce": 2 * 4 * n_elems}
+            for p in (P, 2)}
+    for v in wire.values():
+        v["ratio"] = v["f32_ring_all_reduce"] / v["int8_all_gather"]
+
+    # --- the err leaf through two train steps on the card -------------------
+    del grads, flat
+    gc.collect()
+    state = init_train_state(params, compression=True)
+    init_ok = all(
+        e.dtype == torch.float32 and e.device == dev and e.shape == p.shape
+        and not e.any()
+        for (_, e), (_, p) in zip(tree_items(state.err), tree_items(params)))
+    state = state._replace(err=st1.err)
+    step_fn = make_train_step(model, AdamWConfig(
+        peak_lr=args.lr, warmup_steps=0, decay_steps=args.steps))
+    new = state
+    losses = []
+    for b in batches:
+        new, met = step_fn(new, b)
+        losses.append(float(met["loss"]))
+    torch.cuda.synchronize()
+    err_unequal = [".".join(p) for p, e in tree_items(new.err)
+                   if not torch.equal(e, e1[p])]
+    new_params = dict(tree_items(new.params))
+    moved_params = sum(not torch.equal(new_params[p], t)
+                       for p, t in tree_items(params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, new, st1, e1, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if created_group:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    ok = bool(launches == want_step and zeros_ok and init_ok
+              and worst[0] <= 1.0 and residual_nonzero > 0
+              and all(v["bit_equal"] for v in leaves.values())
+              and not err_unequal and moved_params > 0
+              and all(np.isfinite(losses)) and np.isfinite(float(loss)))
+    emit({"phase": "compression", "card": card_line(), "model": cfg.name,
+          "params": model.param_count(), "tokens": args.global_batch
+          * args.seq, "compute_dtype": cfg.compute_dtype,
+          "remat": cfg.remat, "mesh": {"shape": list(mesh.shape),
+                                       "names": list(mesh.mesh_dim_names),
+                                       "backend": "nccl"},
+          "leaves": n_leaves, "elements": n_elems,
+          "grad_step_s": grad_s, "loss": float(loss),
+          "launches_in_the_gradient_step": launches,
+          "expected_launches": want_step,
+          "init_compression_zero_f32": zeros_ok,
+          "worst_mean_error_over_max_g_by_127": worst[0],
+          "worst_leaf": ".".join(worst[1]),
+          "leaves_with_a_nonzero_residual": residual_nonzero,
+          "against_the_cpu": leaves,
+          "runs": ms, "ms": median_ms, "ms_runs": events,
+          "device_ms_behind_a_spin": spun_ms,
+          "device_ms_behind_a_spin_over_bound": spun_ms / bound,
+          "traced_call": {k: traced_call[k] for k in (
+              "gpu_activities", "device_busy_ms", "device_span_ms",
+              "device_busy_share_of_span", "focus", "top", "whole",
+              "trace")},
+          "bytes_moved": moved, "bytes": n_bytes, "bound_ms": bound,
+          "bound_by": bound_by, "ms_over_bound": median_ms / bound,
+          "busy_ms_over_bound": traced_call["device_busy_ms"] / bound,
+          "wire_bytes": wire,
+          "init_train_state_err_zero_f32": init_ok,
+          "train_steps_losses": losses,
+          "err_leaves_changed_by_the_steps": err_unequal,
+          "parameter_leaves_moved": moved_params,
+          "peak_memory_gb": peak_gb, "seconds": seconds, "ok": ok})
+    if not ok:
+        bad = {k: v["ulp_gaps"] for k, v in leaves.items()
+               if not v["bit_equal"]}
+        raise SystemExit(f"compression: launches {launches}, card vs CPU "
+                         f"gaps {bad}, worst mean error {worst}, err "
+                         f"changed by a step {err_unequal[:4]}")
+    return {k: {"launches": launches[k], "launches_per_step": want_step[k]}
+            for k in want_step}
+
 
 # The remaining dense families, Mamba-1 and MoE (``lm_family_phases``):
 # each arch at full width, at full depth but qwen1.5-32b's and
@@ -5938,6 +6209,12 @@ def main(argv=None) -> int:
     for name, by_path in elastic_phase().items():
         entry = next(k for k in kernels if k["name"] == name)
         entry["by_path"]["elastic"] = by_path
+    # int8 error-feedback compression: the gradients of one train step (the
+    # counts zeroed just before it and read just after), reduced over a
+    # one-card pod mesh
+    for name, by_path in compression_phase().items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["by_path"]["compression"] = by_path
     train_times = train_shape_times()
     for k in kernels:
         if k["name"] in train_times:

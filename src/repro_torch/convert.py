@@ -9,8 +9,8 @@ this module never imports the reference) and builds the port's config.
 For the LM stack, ``model_config_from_reference`` does the same for a
 ``ModelConfig``, ``lm_params_from_reference`` takes the reference's
 parameter pytree as numpy arrays, ``train_state_from_reference`` its
-``TrainState`` (step, parameters, AdamW moments), and
-``lm_quantized_params_from_reference`` its ``quantize_weights_int8``
+``TrainState`` (step, parameters, AdamW moments, compression residuals),
+and ``lm_quantized_params_from_reference`` its ``quantize_weights_int8``
 trees (int8 values and scales).
 """
 
@@ -99,20 +99,21 @@ def lm_params_from_reference(cfg: ModelConfig, params) -> dict:
 
 def train_state_from_reference(cfg: ModelConfig, state) -> TrainState:
     """The reference's ``TrainState`` (``step``, ``params``, ``opt`` with
-    moments ``m`` and ``v``; leaves as numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, state)``) as the port's, on the CPU.  The
-    parameters and both moments are checked against ``param_specs(cfg)``
-    as :func:`lm_params_from_reference` checks them; a state with
-    compression error feedback (``err``) raises, as the port has no
-    compression."""
+    moments ``m`` and ``v``, and the compression residuals ``err`` or
+    ``None``; leaves as numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    state)``) as the port's, on the CPU.  The parameters, both moments and
+    each ``err`` leaf are checked against ``param_specs(cfg)`` as
+    :func:`lm_params_from_reference` checks them; ``err`` is made f32."""
+    err = None
     if state.err is not None:
-        raise NotImplementedError("compression error feedback is not "
-                                  "ported (ROADMAP.md §1 item 7)")
+        err = layers.tree_map(lambda t: t.to(torch.float32),
+                              lm_params_from_reference(cfg, state.err))
     return TrainState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
         params=lm_params_from_reference(cfg, state.params),
         opt={k: lm_params_from_reference(cfg, state.opt[k])
-             for k in ("m", "v")})
+             for k in ("m", "v")},
+        err=err)
 
 
 def lm_quantized_params_from_reference(cfg: ModelConfig, qs: dict) -> dict:

@@ -18,8 +18,12 @@ DTensor placements through :attr:`NamedSharding.placements`, one per mesh
 dim.  Tensors are placed only on a mesh of one device: there
 :func:`distribute_tree` wraps each leaf with ``DTensor.from_local`` (no
 copy) and :func:`local_tree` gives the local tensors back to the port's
-kernels.  A mesh of more than one device needs collectives, which wait with
-the collectives slice (ROADMAP.md §1 item 7); so does ``shard_map``.
+kernels.  Placing tensors on a mesh of more than one device needs
+collectives, which wait with the collectives slice (ROADMAP.md §1 item 7);
+so does ``shard_map``.  The int8 error-feedback reduction
+(``train.compression.compressed_allreduce``) is ported: it all-gathers over
+an axis of the mesh made active here (:func:`active_mesh`), on any number
+of ranks.
 
 Mesh conventions (launch/mesh.py):
   * single-pod: ``("data", "model")`` = (16, 16)
@@ -383,6 +387,13 @@ def activate(mesh, rules: AxisRules = DEFAULT_RULES):
         yield
     finally:
         _ACTIVE.reset(token)
+
+
+def active_mesh():
+    """The mesh of the innermost ``activate(...)`` region, or ``None``
+    outside one."""
+    active = _ACTIVE.get()
+    return None if active is None else active[0]
 
 
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]],

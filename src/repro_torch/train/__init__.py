@@ -1,7 +1,8 @@
 """Training (``repro/train``): AdamW, the train state and the step
-builders, on tensors.  The int8 error-feedback compression of the
-cross-pod gradient reduction (``compression.py``) needs a multi-pod mesh
-and waits with the collectives slice (ROADMAP.md §1 item 7)."""
+builders, on tensors, and the int8 error-feedback compression of the
+cross-pod gradient reduction (``compression.py``), which all-gathers over
+a ``ProcessGroup``.  The pod-compressed step that uses it waits with the
+collectives slice (ROADMAP.md §1 item 7)."""
 
 from .optim import AdamWConfig, adamw_init, adamw_update, lr_at  # noqa: F401
 from .state import (  # noqa: F401
@@ -9,3 +10,10 @@ from .state import (  # noqa: F401
     train_state_specs,
 )
 from .trainer import make_eval_step, make_train_step  # noqa: F401
+from .compression import (  # noqa: F401
+    CompressionState,
+    compress_decompress,
+    compressed_allreduce,
+    compressed_allreduce_tree,
+    init_compression,
+)

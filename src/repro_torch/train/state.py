@@ -8,7 +8,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import tree_items
+from repro_torch.models.layers import tree_items, tree_map
 from repro_torch.sharding import AxisRules, DEFAULT_RULES, shardings_for_tree
 from repro_torch.sharding.partition import distribute_tree  # noqa: F401
 
@@ -19,43 +19,39 @@ class TrainState(NamedTuple):
     step: torch.Tensor         # () int32, on the parameters' device
     params: Any
     opt: Any                   # {"m": ..., "v": ...} like params
-    err: Optional[Any] = None  # int8-compression error feedback: not ported
+    err: Optional[Any] = None  # int8-compression error feedback (or None)
 
 
 def init_train_state(params: Any, *, compression: bool = False
                      ) -> TrainState:
-    """Step 0 with zero moments, on the device of the parameters."""
-    if compression:
-        raise NotImplementedError(
-            "int8 error-feedback compression (train/compression.py) is not "
-            "ported: it needs a multi-pod mesh and waits with sharding/ in "
-            "ROADMAP.md §1 item 7")
+    """Step 0 with zero moments, on the device of the parameters; with
+    ``compression``, zero f32 residuals (``err``) like the parameters,
+    whatever their dtype."""
     device = next(leaf for _, leaf in tree_items(params)).device
+    err = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params) if compression else None)
     return TrainState(torch.zeros((), dtype=torch.int32, device=device),
-                      params, adamw_init(params), None)
+                      params, adamw_init(params), err)
 
 
 def train_state_specs(model, *, compression: bool = False):
     """(abstract TrainState of ``meta`` tensors, axes TrainState-shaped
-    tree)."""
-    if compression:
-        raise NotImplementedError(
-            "the int8 error-feedback state (train/compression.py) is not "
-            "ported: it waits with the collectives slice in ROADMAP.md §1 "
-            "item 7")
+    tree).  ``err`` takes the parameters' specs, as the reference's does:
+    the parameters' dtype, which is ``init_train_state``'s f32 under the
+    configs' default ``param_dtype``."""
     p_abs = model.abstract_params()
     p_axes = model.param_axes()
     abs_state = TrainState(
         step=torch.empty((), dtype=torch.int32, device="meta"),
         params=p_abs,
         opt={"m": p_abs, "v": p_abs},
-        err=None,
+        err=p_abs if compression else None,
     )
     axes_state = TrainState(
         step=(),
         params=p_axes,
         opt={"m": p_axes, "v": p_axes},
-        err=None,
+        err=p_axes if compression else None,
     )
     return abs_state, axes_state
 

@@ -310,22 +310,26 @@ def test_param_shardings_match_the_reference(arch, rules):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_state_shardings_match_the_reference(arch):
+    """The TrainState's specs by tree path, with and without the
+    compression residuals (``err``, the parameters' specs), equal the
+    reference's on each mesh under DEFAULT_RULES and SP_RULES."""
     m, jm = _both(arch)
-    for mesh in MESHES:
-        pm, jmesh = _meshes(mesh)
-        for rules in ("DEFAULT_RULES", "SP_RULES"):
-            abs_state, got = train_state_shardings(m, pm,
-                                                   getattr(part, rules))
-            _, want = jtrain_shardings(jm, jmesh, getattr(jpart, rules))
-            got, want = _specs(got, want)
-            assert got == want, (mesh, rules)
-            assert got[("step",)] == ()
-    assert abs_state.step.dtype == torch.int32 and abs_state.err is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        train_state_specs(m, compression=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        train_state_shardings(m, part.AbstractMesh((1, 1), ("data", "model")),
-                              compression=True)
+    for compression in (False, True):
+        for mesh in MESHES:
+            pm, jmesh = _meshes(mesh)
+            for rules in ("DEFAULT_RULES", "SP_RULES"):
+                abs_state, got = train_state_shardings(
+                    m, pm, getattr(part, rules), compression=compression)
+                _, want = jtrain_shardings(jm, jmesh, getattr(jpart, rules),
+                                           compression=compression)
+                got, want = _specs(got, want)
+                assert got == want, (mesh, rules, compression)
+                assert got[("step",)] == ()
+                assert any(p[0] == "err" for p in got) == compression
+        assert abs_state.step.dtype == torch.int32
+    assert train_state_specs(m)[0].err is None
+    abs_state, axes = train_state_specs(m, compression=True)
+    assert abs_state.err is abs_state.params and axes.err is axes.params
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -439,6 +439,9 @@ def test_train_step_matches_reference(arch, S, remat, n_micro):
 
 
 def test_train_state_from_reference_checks_the_tree():
+    """The reference's state crosses over with its tree checked; one with
+    compression residuals (``err``) crosses with them, f32, equal to the
+    reference's leaf for leaf."""
     jcfg, jm, jp, cfg, m, _ = _pair("h2o-danube-1.8b")
     js = _np(jinit_train_state(jp))
     st = train_state_from_reference(cfg, js)
@@ -446,8 +449,15 @@ def test_train_state_from_reference_checks_the_tree():
     bad = js._replace(opt={"m": js.opt["m"], "v": {"embed": {}}})
     with pytest.raises(ValueError, match="parameter trees differ"):
         train_state_from_reference(cfg, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_state_from_reference(cfg, js._replace(err=js.params))
+    jc = _np(jinit_train_state(jp, compression=True))
+    jc = jc._replace(err=jax.tree.map(
+        lambda p: (np.asarray(p) * 0.5).astype(np.float32), jc.params))
+    st = train_state_from_reference(cfg, jc)
+    got, want = list(tree_items(st.err)), list(tree_items(jc.err))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, e), (_, w) in zip(got, want):
+        assert e.dtype == torch.float32, path
+        np.testing.assert_array_equal(e.numpy(), w, err_msg=str(path))
 
 
 def test_microbatching_equivalent():
@@ -662,7 +672,7 @@ def test_cli_module_runs_and_resumes(tmp_path):
 def test_cli_and_build_raise_without_a_card():
     """The entry points run on the card unless told otherwise: with no card
     they raise instead of training on the CPU.  ``--compress-pod`` names
-    the queue it waits in."""
+    the queue it waits in; a compression state builds on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry points run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -671,8 +681,10 @@ def test_cli_and_build_raise_without_a_card():
         build(get_smoke("zamba2-1.2b"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
         train_cli.main(_cli("--steps", 1, "--compress-pod"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_train_state({"w": torch.zeros(2)}, compression=True)
+    st = init_train_state({"w": torch.zeros(2, dtype=torch.bfloat16)},
+                          compression=True)
+    assert st.err["w"].dtype == torch.float32
+    assert torch.equal(st.err["w"], torch.zeros(2))
 
 
 def test_cli_presets():
