@@ -137,6 +137,16 @@ its gradient; a compression train state takes 2 steps with ``err``
 unchanged; the reduction's device ms beside its byte bound, one call
 traced, and the int8 wire bytes against an f32 ring all-reduce's.
 
+The pod-compressed train step (``pod_compressed_phase``, phase
+``pod_compressed``): (a) ``launch.train.main`` with the ``train`` phase's
+argv and ``--compress-pod`` on a world-size-1 nccl ``(1, 1, 1)`` pod mesh
+(12 attention and 80 SSD launches a step, the first 3 losses within rtol
+2e-2 of ``train``'s, the checkpoint holding ``err``, ms a warm step, peak
+memory); (b) two spawned gloo ranks on ``cuda:0``, each a pod of 4 of the
+8 rows, 3 steps of the elastic phase's cut (params and moments the same
+bits after every step, losses within rtol 2e-2 of a plain step on the
+whole batch, the reduction's ms a step, the wire bytes).
+
 The remaining dense families, Mamba-1 and the MoE family
 (``lm_family_phases``): yi-9b (48 layers), granite-34b (88), qwen1.5-32b
 (60 of 64), falcon-mamba-7b (64), moonshot-v1-16b-a3b (48) and
@@ -188,6 +198,7 @@ import ctypes
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1694,7 +1705,7 @@ def train_phases() -> dict:
                          f"{launches}")
     return {"launches": {k: launches[k] for k in want_step},
             "per_step": {k: per_step[k] for k in want_step},
-            "peak_memory_gb": peak_gb}
+            "peak_memory_gb": peak_gb, "losses": first, "ms_warm": ms_warm}
 
 
 def misplaced_leaves(state, shardings) -> list:
@@ -2577,6 +2588,335 @@ def compression_phase() -> dict:
                          f"changed by a step {err_unequal[:4]}")
     return {k: {"launches": launches[k], "launches_per_step": want_step[k]}
             for k in want_step}
+
+
+# The pod-compressed train step (``pod_compressed_phase``): (a) the CLI's
+# run of ``train`` with ``--compress-pod`` at P = 1, one checkpoint at its
+# last step; (b) two gloo ranks on the one card at the elastic phase's cut
+POD_STEPS = 3                  # steps held to the plain run's losses
+POD_RANK_TIMEOUT_S = 300
+POD_RANK = r'''
+import json
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get
+from repro_torch.data import TokenPipelineConfig, TokenStream
+from repro_torch.kernels import ops
+from repro_torch.launch import train as train_cli
+from repro_torch.models import build
+from repro_torch.models.layers import tree_items
+from repro_torch.train import AdamWConfig, init_train_state
+from repro_torch.train import trainer
+
+torch.backends.cuda.matmul.allow_tf32 = False
+rank, out, spec = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+dist.init_process_group("gloo", store=dist.FileStore(out + "/store", 2),
+                        rank=rank, world_size=2)
+try:
+    mesh = train_cli._pod_mesh("cuda")
+    model = build(get(spec["arch"]).replace(**spec["cut"]))
+    dev = model.device
+    state = init_train_state(model.init_master(
+        torch.Generator(dev).manual_seed(0)), compression=True)
+    step_fn = trainer.make_train_step_pod_compressed(
+        model, AdamWConfig(**spec["opt"]), mesh)
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=model.cfg.vocab, seq_len=spec["seq"],
+        global_batch=spec["global_batch"]))
+    reduce_ms = []
+    reduce_tree = trainer.comp.compressed_allreduce_tree
+
+    def timed_reduce(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = reduce_tree(*a, **k)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    trainer.comp.compressed_allreduce_tree = timed_reduce
+    group = mesh.get_group("pod")
+
+    def leaves():
+        return [(name + "/" + "/".join(path), t)
+                for name, tree in (("params", state.params),
+                                   ("m", state.opt["m"]),
+                                   ("v", state.opt["v"]))
+                for path, t in tree_items(tree)]
+
+    def fingerprints():
+        """Two 64-bit random linear sketches of each leaf's bits, the same
+        weights on both ranks: a difference escapes both with probability
+        below 2^-64."""
+        out = []
+        for i, (_, t) in enumerate(leaves()):
+            bits = t.reshape(-1).view(torch.int32).to(torch.int64)
+            for j in range(2):
+                gen = torch.Generator(dev).manual_seed(2 * i + j)
+                w = torch.randint(-2 ** 62, 2 ** 62, bits.shape,
+                                  generator=gen, device=dev,
+                                  dtype=torch.int64)
+                out.append((bits * w).sum())
+        return torch.stack(out)
+
+    rows, unequal, step_ms, check_ms = [], [], [], []
+    ops.reset_launch_counts()
+    for s in range(spec["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append({k: float(v) for k, v in met.items()})
+        # params and moments against the other rank's: the fingerprints
+        # after every step, every bit after the last
+        t0 = time.perf_counter()
+        mine = fingerprints()
+        both = [torch.empty_like(mine) for _ in range(2)]
+        dist.all_gather(both, mine, group=group)
+        names = [n for n, _ in leaves()]
+        bad = [names[i // 2] for i in
+               torch.nonzero(both[0] != both[1]).flatten().tolist()]
+        if s == spec["steps"] - 1:
+            for name, t in leaves():
+                both = [torch.empty_like(t) for _ in range(2)]
+                dist.all_gather(both, t, group=group)
+                if not torch.equal(both[0], both[1]):
+                    bad.append(name)
+        unequal.append(sorted(set(bad)))
+        check_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: ops.launch_counts()[k]
+                for k in ("flash_attention", "ssd_scan")}
+    elements = sum(t.numel() for _, t in tree_items(state.params))
+    leaves = len(list(tree_items(state.params)))
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump({"metrics": rows, "unequal": unequal, "step_ms": step_ms,
+                   "reduce_ms": reduce_ms, "equality_check_ms": check_ms,
+                   "launches": launches, "elements": elements,
+                   "leaves": leaves, "device": str(dev),
+                   "on_the_card": all(t.is_cuda for _, t in
+                                      tree_items(state.err)),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "backend": dist.get_backend(group),
+                   "mesh": list(mesh.shape),
+                   "jax_or_repro_imported": any(
+                       m == "jax" or m == "repro" or m.startswith("repro.")
+                       for m in sys.modules)}, f)
+finally:
+    dist.destroy_process_group()
+'''
+
+
+def pod_compressed_phase(train: dict) -> dict:
+    """The pod-compressed train step on the card (phase
+    ``pod_compressed``).  (a) ``launch.train.main`` with the ``train``
+    phase's argv and ``--compress-pod`` (zamba2-1.2b at full width and
+    depth, bf16 over the f32 master, remat, 8 steps of 8 x 512 tokens) on
+    a world-size-1 nccl ``(1, 1, 1)`` pod mesh, one checkpoint at its last
+    step (``--ckpt-every`` 8, which leaves the schedule as it is): 12
+    attention and 80 SSD launches a step, losses and grad norms finite,
+    the first ``POD_STEPS`` losses within rtol 2e-2 of ``train``'s logged
+    losses at the same steps, the checkpoint holding ``err``; ms a warm
+    step beside ``train``'s, peak memory.  (b) Two spawned gloo ranks on
+    ``cuda:0``, each a pod of 4 of the 8 rows, take ``POD_STEPS`` steps
+    of the elastic phase's one-super-block cut: their params and moments
+    the same bits after every step (two 64-bit random linear sketches of
+    each leaf's bits gathered over gloo after every step, every leaf
+    gathered and compared on the card after the last), losses within rtol 2e-2 of a plain ``make_train_step`` on
+    the whole batch in this process; the reduction's ms a step
+    (synchronized) and the wire bytes.  Returns each kernel's launches on
+    both paths."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import TokenPipelineConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build
+    from repro_torch.models.layers import tree_items
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kinds = ("flash_attention", "ssd_scan")
+
+    # --- (a) P = 1: the CLI at full width and depth --------------------------
+    args = train_cli.parse_args([*TRAIN_ARGV])
+    cfg = train_cli.preset_config(args.arch, args.preset)
+    n_super = cfg.n_layers // cfg.share_every
+    n_mamba = n_super * cfg.share_every + (cfg.n_layers % cfg.share_every) ** 2
+    per_call = 2 if cfg.remat else 1
+    want_step = {"flash_attention": per_call * n_super,
+                 "ssd_scan": per_call * n_mamba}
+    ckpt_root = ROOT / "build"
+    ckpt_root.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="pod_ckpt_", dir=ckpt_root))
+    argv = [*TRAIN_ARGV, "--compress-pod", "--ckpt", str(ckpt),
+            "--ckpt-every", str(args.steps)]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train_cli.main(argv)
+        run_s = time.perf_counter() - t0
+        launches = {k: ops.launch_counts()[k] for k in kinds}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        err_leaves = [p for p, _ in tree_items(state.err)]
+        err_on_card = all(t.is_cuda and t.dtype == torch.float32
+                          for _, t in tree_items(state.err))
+        steps = int(state.step)
+        manifest = json.loads((ckpt / f"step_{steps:08d}"
+                               / "manifest.json").read_text())
+        saved = [leaf["key"] for leaf in manifest["leaves"]]
+        ckpt_gb = sum(f.stat().st_size for f in ckpt.rglob("*")) / 1e9
+        del state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = {h["step"]: h["loss"] for h in hist}
+    rel = {s: abs(losses[s] / train["losses"][s] - 1)
+           for s in range(1, POD_STEPS + 1)}
+    warm = [h["ms_per_step"] for h in hist[1:]]
+    ms_warm = float(np.median(warm))
+    err_saved = sum(k.startswith(".err/") for k in saved)
+    p1_ok = bool(launches == {k: steps * v for k, v in want_step.items()}
+                 and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                         for h in hist)
+                 and max(rel.values()) <= 2e-2
+                 and err_on_card and err_saved == len(err_leaves) > 0)
+
+    # --- (b) P = 2: two gloo ranks on the one card ---------------------------
+    t_p2 = time.perf_counter()
+    cut = get(args.arch).replace(**ELASTIC_DEPTH)
+    opt = {"peak_lr": args.lr, "warmup_steps": 0, "decay_steps": POD_STEPS}
+    dev = torch.device("cuda", 0)
+    model = build(cut)
+    plain = make_train_step(model, AdamWConfig(**opt))
+    stream = TokenStream(TokenPipelineConfig(
+        vocab=cut.vocab, seq_len=args.seq, global_batch=args.global_batch))
+    st = init_train_state(model.init_master(
+        torch.Generator(dev).manual_seed(0)))
+    plain_losses = []
+    for s in range(POD_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(s).items()}
+        st, met = plain(st, batch)
+        plain_losses.append(float(met["loss"]))
+    del st, met, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"arch": args.arch, "cut": ELASTIC_DEPTH, "opt": opt,
+            "steps": POD_STEPS, "seq": args.seq,
+            "global_batch": args.global_batch}
+    out = Path(tempfile.mkdtemp(prefix="pod_ranks_", dir=ckpt_root))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", POD_RANK, str(r), str(out), json.dumps(spec)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=POD_RANK_TIMEOUT_S) for p in procs]
+        codes = [p.returncode for p in procs]
+        ranks = ([json.loads((out / f"rank{r}.json").read_text())
+                  for r in range(2)] if codes == [0, 0] else [])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    if codes != [0, 0]:
+        raise SystemExit(f"pod_compressed (b): ranks exited {codes}: "
+                         + " | ".join(e[-2000:] for _, e in outs))
+    cut_super = cut.n_layers // cut.share_every
+    cut_mamba = (cut_super * cut.share_every
+                 + (cut.n_layers % cut.share_every) ** 2)
+    want_cut = {"flash_attention": per_call * cut_super,
+                "ssd_scan": per_call * cut_mamba}
+    pod_losses = [m["loss"] for m in ranks[0]["metrics"]]
+    p2_rel = [abs(a / b - 1) for a, b in zip(pod_losses, plain_losses)]
+    n_elems, n_leaves = ranks[0]["elements"], ranks[0]["leaves"]
+    wire = {"int8_all_gather": 2 * (n_elems + 4 * n_leaves),
+            "f32_ring_all_reduce": 2 * 4 * n_elems}
+    wire["ratio"] = wire["f32_ring_all_reduce"] / wire["int8_all_gather"]
+    p2_ok = bool(all(not any(r["unequal"]) for r in ranks)
+                 and ranks[0]["metrics"] == ranks[1]["metrics"]
+                 and max(p2_rel) <= 2e-2
+                 and all(r["launches"] == {k: POD_STEPS * v
+                                           for k, v in want_cut.items()}
+                         for r in ranks)
+                 and all(r["on_the_card"] and not r["jax_or_repro_imported"]
+                         and r["backend"] == "gloo" for r in ranks)
+                 and all(np.isfinite(pod_losses)))
+    p2_s = time.perf_counter() - t_p2
+    seconds = time.perf_counter() - t_phase
+    ok = p1_ok and p2_ok
+    emit({"phase": "pod_compressed", "card": card_line(),
+          "p1": {"argv": argv[:-4] + ["--ckpt", "<tmp>", "--ckpt-every",
+                                      str(args.steps)],
+                 "model": cfg.name, "mesh": [1, 1, 1], "backend": "nccl",
+                 "losses": losses,
+                 "train_losses": {s: train["losses"][s]
+                                  for s in range(1, POD_STEPS + 1)},
+                 "loss_rel_diff_to_train": rel, "rtol": 2e-2,
+                 "grad_norms": {h["step"]: h["grad_norm"] for h in hist},
+                 "lrs": {h["step"]: h["lr"] for h in hist},
+                 "ms_per_step": {h["step"]: h["ms_per_step"] for h in hist},
+                 "ms_per_warm_step_median": ms_warm,
+                 "train_ms_per_warm_step_median": train["ms_warm"],
+                 "tokens_per_s": args.global_batch * args.seq / ms_warm * 1e3,
+                 "peak_memory_gb": peak_gb,
+                 "train_peak_memory_gb": train["peak_memory_gb"],
+                 "launches_in_run": launches,
+                 "launches_per_step_expected": want_step,
+                 "err_leaves": len(err_leaves),
+                 "err_leaves_in_checkpoint": err_saved,
+                 "checkpoint_gb": ckpt_gb, "run_seconds": run_s,
+                 "ok": p1_ok},
+          "p2": {"model": cut.name, "cut": ELASTIC_DEPTH,
+                 "ranks": 2, "backend": "gloo", "device": "cuda:0",
+                 "rows_per_rank": args.global_batch // 2, "seq": args.seq,
+                 "steps": POD_STEPS, "opt": opt,
+                 "losses": pod_losses, "plain_losses": plain_losses,
+                 "loss_rel_diff_to_plain": p2_rel, "rtol": 2e-2,
+                 "unequal_leaves_by_step": [r["unequal"] for r in ranks],
+                 "metrics_equal": ranks[0]["metrics"] == ranks[1]["metrics"],
+                 "step_ms": [r["step_ms"] for r in ranks],
+                 "reduce_ms": [r["reduce_ms"] for r in ranks],
+                 "reduce_ms_median": float(np.median(
+                     ranks[0]["reduce_ms"] + ranks[1]["reduce_ms"])),
+                 "equality_check_ms": [r["equality_check_ms"]
+                                       for r in ranks],
+                 "launches": [r["launches"] for r in ranks],
+                 "launches_per_step_expected": want_cut,
+                 "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+                 "elements": n_elems, "leaves": n_leaves,
+                 "wire_bytes": wire, "seconds": p2_s, "ok": p2_ok},
+          "seconds": seconds, "ok": ok})
+    if not ok:
+        raise SystemExit(
+            f"pod_compressed: P = 1 launches {launches}, loss gaps {rel}, "
+            f"err saved {err_saved}/{len(err_leaves)}; P = 2 unequal "
+            f"{[r['unequal'] for r in ranks]}, loss gaps {p2_rel}, launches "
+            f"{[r['launches'] for r in ranks]}")
+    return {k: {"p1": {"launches": launches[k],
+                       "launches_per_step": want_step[k]},
+                "p2": {"launches_per_rank": [r["launches"][k]
+                                             for r in ranks],
+                       "launches_per_step": want_cut[k]}}
+            for k in kinds}
 
 
 # The remaining dense families, Mamba-1 and MoE (``lm_family_phases``):
@@ -6215,6 +6555,13 @@ def main(argv=None) -> int:
     for name, by_path in compression_phase().items():
         entry = next(k for k in kernels if k["name"] == name)
         entry["by_path"]["compression"] = by_path
+    # the pod-compressed step: the CLI's --compress-pod run (counts zeroed
+    # just before launch.train.main and read just after) and two ranks on
+    # the card (each rank's counts from its own steps)
+    for name, by_path in pod_compressed_phase(train).items():
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["by_path"]["pod_compressed"] = by_path["p1"]
+        entry["by_path"]["pod_compressed_p2"] = by_path["p2"]
     train_times = train_shape_times()
     for k in kernels:
         if k["name"] in train_times:
@@ -6256,7 +6603,8 @@ def main(argv=None) -> int:
                t["losses"][0]["launches_without_device_record"]]
               for t in TRACES],
           "not_whole": [t["name"] for t in TRACES if not t["whole"]]})
-    emit({"phase": "wall", "seconds": time.perf_counter() - STARTED})
+    emit({"phase": "wall", "seconds": time.perf_counter() - STARTED,
+          "seconds_limit": 1200})
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

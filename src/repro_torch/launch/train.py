@@ -20,9 +20,17 @@ already holds that step.  With ``--resume`` the loop restarts from the
 latest checkpoint under ``--ckpt``, restored into the placed state.  A
 process group that ``make_host_mesh`` made for the run is destroyed when
 the run ends; the returned state's leaves stay DTensors on the mesh, and
-``local_tree`` gives their tensors.  ``--compress-pod`` (int8
-error-feedback compression of a multi-pod gradient reduction) waits with
-the collectives slice, ROADMAP.md §1 item 7.
+``local_tree`` gives their tensors.
+
+``--compress-pod`` trains with the int8 error-feedback compression of the
+cross-pod gradient reduction (``train.trainer.
+make_train_step_pod_compressed``), as the reference's flag does, on an
+unplaced state with ``err``.  Its mesh is ``("pod", "data", "model")`` of
+shape (world size, 1, 1) over the process group there is (one rank a pod;
+without a group, the usual world-size-1 one), where the reference's
+``make_host_mesh(multi_pod=True)`` takes 8 devices or more.  Every rank
+builds the same global batch, and the step cuts each rank's rows.  Only
+rank 0 writes checkpoints; every rank restores from them.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.configs import ModelConfig, get, get_smoke
 from repro_torch.data import PrefetchLoader, TokenPipelineConfig, TokenStream
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import _device_mesh, make_host_mesh
 from repro_torch.models import build
 from repro_torch.sharding import DEFAULT_RULES, activate
 from repro_torch.sharding.partition import local_tree
@@ -44,6 +52,7 @@ from repro_torch.train import (
     AdamWConfig, distribute_tree, init_train_state, make_train_step,
     train_state_shardings,
 )
+from repro_torch.train.trainer import make_train_step_pod_compressed
 
 
 def preset_config(arch: str, preset: str) -> ModelConfig:
@@ -83,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-pod", action="store_true",
                     help="int8 error-feedback cross-pod grad reduction "
-                         "(not ported: ROADMAP.md §1 item 7)")
+                         "(one rank a pod: a (world, 1, 1) pod mesh)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
@@ -96,11 +105,6 @@ def main(argv=None):
     ms_per_step since the previous logged step, on the host clock, each
     logged step read back)."""
     args = parse_args(argv)
-    if args.compress_pod:
-        raise NotImplementedError(
-            "--compress-pod needs a multi-pod mesh: the pod-compressed step "
-            "and train/compression.py wait with the collectives slice in "
-            "ROADMAP.md §1 item 7")
     cfg = preset_config(args.arch, args.preset)
     if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
@@ -109,7 +113,8 @@ def main(argv=None):
     model = build(cfg, device=args.device)
     created_group = not dist.is_initialized()
     try:
-        mesh = make_host_mesh(device=args.device)
+        mesh = (_pod_mesh(args.device) if args.compress_pod
+                else make_host_mesh(device=args.device))
         print(f"arch={args.arch} preset={args.preset} "
               f"params={model.param_count()/1e6:.1f}M device={model.device} "
               f"mesh={tuple(mesh.shape)}", flush=True)
@@ -120,15 +125,29 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
+def _pod_mesh(device):
+    """``("pod", "data", "model")`` of shape (world size, 1, 1): one rank
+    a pod, over the process group there is."""
+    return _device_mesh(device, lambda world: (world, 1, 1),
+                        ("pod", "data", "model"))
+
+
 def _train(args, cfg, model, mesh):
     dev = model.device
-    _, state_sh = train_state_shardings(model, mesh)
-    state = distribute_tree(init_train_state(
-        model.init_master(torch.Generator(dev).manual_seed(0))), state_sh)
-    step_fn = make_train_step(model, optimizer_config(args),
-                              n_micro=args.n_micro)
+    params = model.init_master(torch.Generator(dev).manual_seed(0))
+    if args.compress_pod:
+        # as the reference's branch: an unplaced state with err
+        state = init_train_state(params, compression=True)
+        step_fn = make_train_step_pod_compressed(
+            model, optimizer_config(args), mesh, n_micro=args.n_micro)
+    else:
+        _, state_sh = train_state_shardings(model, mesh)
+        state = distribute_tree(init_train_state(params), state_sh)
+        step_fn = make_train_step(model, optimizer_config(args),
+                                  n_micro=args.n_micro)
 
     mgr = CheckpointManager(args.ckpt) if args.ckpt else None
+    writes = dist.get_rank() == 0       # every rank restores; rank 0 saves
     start, saved = 0, None            # saved: the step the store holds
     if args.resume and args.ckpt and latest_step(args.ckpt) is not None:
         state = mgr.restore_latest(state)
@@ -162,12 +181,12 @@ def _train(args, cfg, model, mesh):
                       f"lr {rec['lr']:.2e}  "
                       f"grad_norm {rec['grad_norm']:.3f}  "
                       f"{rec['tok_per_s']:,.0f} tok/s", flush=True)
-            if mgr and (i + 1) % args.ckpt_every == 0:
+            if mgr and writes and (i + 1) % args.ckpt_every == 0:
                 mgr.save_async(state, i + 1)
                 saved = i + 1
     finally:
         loader.close()
-        if mgr:
+        if mgr and writes:
             final = int(local_tree(state.step))
             if saved == final:
                 mgr.wait()

@@ -3,8 +3,8 @@ the multi-pod axis, on ``DeviceMesh`` and DTensor placements.
 
 Every parameter and activation is annotated with logical axis names, and a
 rule table maps those names onto mesh axes with divisibility-checked
-fallbacks.  The reference's ``shard_map`` waits with the collectives slice
-(ROADMAP.md §1 item 7).
+fallbacks.  ``shard_map`` runs a function manual over mesh axes, one
+process a device (the pod-compressed train step runs under it).
 """
 
 from .partition import (  # noqa: F401
@@ -18,4 +18,5 @@ from .partition import (  # noqa: F401
     shardings_for_tree,
     constrain,
     rules_for_shape,
+    shard_map,
 )

@@ -19,11 +19,13 @@ dim.  Tensors are placed only on a mesh of one device: there
 :func:`distribute_tree` wraps each leaf with ``DTensor.from_local`` (no
 copy) and :func:`local_tree` gives the local tensors back to the port's
 kernels.  Placing tensors on a mesh of more than one device needs
-collectives, which wait with the collectives slice (ROADMAP.md §1 item 7);
-so does ``shard_map``.  The int8 error-feedback reduction
-(``train.compression.compressed_allreduce``) is ported: it all-gathers over
-an axis of the mesh made active here (:func:`active_mesh`), on any number
-of ranks.
+collectives, which wait with the collectives slice (ROADMAP.md §1 item 7).
+:func:`shard_map` runs a function manual over mesh axes, one process a
+device: each rank takes its block of every input cut along a manual axis,
+and outputs cut along one are all-gathered back to the global array.  The
+int8 error-feedback reduction (``train.compression.compressed_allreduce``)
+all-gathers over a ``ProcessGroup`` or an axis of the mesh made active
+here (:func:`active_mesh`), on any number of ranks.
 
 Mesh conventions (launch/mesh.py):
   * single-pod: ``("data", "model")`` = (16, 16)
@@ -396,29 +398,162 @@ def active_mesh():
     return None if active is None else active[0]
 
 
+# the mesh axes that are manual in the innermost shard_map body running
+_MANUAL_AXES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_manual_axes", default=frozenset()
+)
+
+
+def _strip(spec: PartitionSpec, manual) -> PartitionSpec:
+    """``spec`` without the mesh axes in ``manual``."""
+    def strip(entry):
+        if entry is None:
+            return None
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        kept = tuple(n for n in names if n not in manual)
+        if not kept:
+            return None
+        return kept if len(kept) > 1 else kept[0]
+    return PartitionSpec(*(strip(e) for e in spec))
+
+
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]],
               rules: Optional[AxisRules] = None) -> torch.Tensor:
     """``x`` laid out by its logical axes on the active mesh.
 
     A no-op outside an ``activate(...)`` region.  Inside, a DTensor is
     redistributed to the spec's placements, and a plain tensor is returned
-    as it is on a mesh whose axes all have size 1; on a larger mesh a plain
-    tensor raises (placing it there needs collectives).
+    as it is where the mesh's axes that are not manual all have size 1;
+    elsewhere a plain tensor raises (placing it there needs collectives).
+    Inside a :func:`shard_map` body the axes that are manual there are
+    dropped from the spec: they are physically fixed.
     """
     active = _ACTIVE.get()
     if active is None:
         return x
     mesh, active_rules = active
-    sharding = named_sharding(axes, x.shape, mesh, rules or active_rules)
+    manual = _MANUAL_AXES.get()
+    spec = _strip(logical_to_spec(axes, x.shape, mesh, rules or active_rules),
+                  manual)
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, sharding.placements)
-    if mesh.size() == 1:
+        return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
+    if math.prod(n for a, n in mesh_axes(mesh).items()
+                 if a not in manual) == 1:
         return x
     raise NotImplementedError(
         f"constraining a plain tensor on {mesh!r} ({mesh.size()} devices) "
         f"needs collectives, which wait with {_COLLECTIVES}")
+
+
+# --- shard_map --------------------------------------------------------------
+
+def _spec_map(fn, specs, tree, what: str):
+    """``fn(leaf, spec)`` over ``tree``, ``specs`` a tree prefix of it: a
+    :class:`PartitionSpec` covers the whole subtree below it."""
+    if isinstance(specs, PartitionSpec):
+        return _map(lambda t: fn(t, specs), tree, is_leaf=torch.is_tensor)
+    if isinstance(specs, dict) and isinstance(tree, dict):
+        if set(specs) != set(tree):
+            raise ValueError(f"{what} specs {sorted(specs)} do not match "
+                             f"the keys {sorted(tree)}")
+        return {k: _spec_map(fn, specs[k], tree[k], what) for k in tree}
+    if (isinstance(specs, (list, tuple)) and isinstance(tree, (list, tuple))
+            and len(specs) == len(tree)):
+        out = [_spec_map(fn, s, t, what) for s, t in zip(specs, tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
+    raise ValueError(f"{what} specs {specs!r} are not a prefix of the tree")
+
+
+def _manual_dims(leaf, spec: PartitionSpec, manual) -> list:
+    """(dim, its manual axes, the first major) for each dim of ``leaf``
+    that ``spec`` puts on a manual axis."""
+    out = []
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        cut = tuple(a for a in names if a in manual)
+        if cut:
+            out.append((d, cut))
+    if out and not (torch.is_tensor(leaf) and len(spec) <= leaf.dim()):
+        raise ValueError(f"{spec!r} cannot cut {leaf!r}")
+    return out
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None,
+              check_vma: bool = False):
+    """``f`` run manual over ``axis_names`` (every axis of the mesh when
+    ``None``), one process a device (``jax.shard_map``).
+
+    Inputs are global: a leaf whose spec puts dim ``d`` on a manual axis is
+    cut along ``d``, and the rank keeps the block at its own coordinate on
+    that axis (``mesh.get_local_rank``; several axes on one dim, the first
+    major); a leaf under ``PartitionSpec()`` is passed as it is.  Specs are
+    tree prefixes: one ``PartitionSpec()`` covers a whole ``TrainState``.
+    An output leaf whose spec puts a dim on a manual axis is all-gathered
+    over that axis's group and concatenated along the dim, which gives the
+    global array; one under ``PartitionSpec()`` comes back as the rank's
+    own value.  As in the reference under ``check_vma=False``, nothing
+    checks that the ranks agree.  While ``f`` runs, the manual axes are
+    recorded for :func:`constrain`.  An axis that is not manual must have
+    size 1:
+    placing tensors within a manual block waits with the collectives
+    slice.
+    """
+    import torch.distributed as dist
+
+    sizes = mesh_axes(mesh)
+    manual = (frozenset(sizes) if axis_names is None
+              else frozenset(axis_names))
+    if not manual <= set(sizes):
+        raise ValueError(f"{mesh!r} has no axes "
+                         f"{sorted(manual - set(sizes))}")
+    auto = {a: n for a, n in sizes.items() if a not in manual and n > 1}
+    if auto:
+        raise NotImplementedError(
+            f"shard_map manual over {sorted(manual)} leaves {auto} "
+            f"automatic on {mesh!r}: placing tensors within a manual block "
+            f"needs collectives, which wait with {_COLLECTIVES}")
+    if isinstance(mesh, AbstractMesh):
+        raise ValueError(f"{mesh!r} is shape-only: it has no ranks")
+
+    def cut(leaf, spec):
+        for d, axes in _manual_dims(leaf, spec, manual):
+            n = math.prod(sizes[a] for a in axes)
+            if leaf.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(leaf.shape)} does not "
+                                 f"split into {n} blocks over {axes}")
+            i = 0
+            for a in axes:
+                i = i * sizes[a] + mesh.get_local_rank(a)
+            size = leaf.shape[d] // n
+            leaf = leaf.narrow(d, i * size, size)
+        return leaf
+
+    def gather(leaf, spec):
+        for d, axes in _manual_dims(leaf, spec, manual):
+            for a in reversed(axes):        # the minor axis first
+                group = mesh.get_group(a)
+                parts = [torch.empty_like(leaf)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, leaf.contiguous(), group=group)
+                leaf = torch.cat(parts, dim=d)
+        return leaf
+
+    def mapped(*args):
+        specs = (tuple(in_specs for _ in args)
+                 if isinstance(in_specs, PartitionSpec) else tuple(in_specs))
+        local = _spec_map(cut, specs, args, "in")
+        token = _MANUAL_AXES.set(_MANUAL_AXES.get() | manual)
+        try:
+            out = f(*local)
+        finally:
+            _MANUAL_AXES.reset(token)
+        return _spec_map(gather, out_specs, out, "out")
+
+    return mapped
 
 
 # --- detection fleet (replica mesh) -----------------------------------------

@@ -1,8 +1,9 @@
 """Training (``repro/train``): AdamW, the train state and the step
 builders, on tensors, and the int8 error-feedback compression of the
 cross-pod gradient reduction (``compression.py``), which all-gathers over
-a ``ProcessGroup``.  The pod-compressed step that uses it waits with the
-collectives slice (ROADMAP.md §1 item 7)."""
+a ``ProcessGroup``.  The pod-compressed step that uses it,
+``trainer.make_train_step_pod_compressed``, is not exported here, as in
+the reference."""
 
 from .optim import AdamWConfig, adamw_init, adamw_update, lr_at  # noqa: F401
 from .state import (  # noqa: F401
