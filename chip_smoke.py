@@ -167,6 +167,21 @@ prefill buckets' lengths held against the plain version under the bf16
 rule and timed beside SDPA and the bound; one layer of falcon's plain
 Mamba-1 scan traced.
 
+Expert parallelism (``moe_ep_phase``, phase ``moe_ep``): moonshot-v1-16b-a3b
+at full width on the card's (1, 1) host mesh.  One layer at T = 1024:
+``moe_ep`` under ``activate`` against ``moe_sort`` (equal capacity),
+output, aux loss and gradients bit for bit in f32 (TF32 off) and bf16,
+under both rule tables, and the bf16 device ms of both; the whole model
+(48 layers, bf16) through ``Model.prefill`` and ``decode_step`` under
+``activate(make_host_mesh(), DECODE_RULES)``: prefills of 1 x 1024 and 4 x
+512 tokens bit for bit with the unplaced ones (48 attention launches
+each), a 4-slot decode step bit for bit with the unplaced step at lifted
+capacity, the gaps at 1 x 128 tokens and to the published-capacity step
+reported; two gloo ranks on ``cuda:0`` at mesh shapes (1, 2) and (2, 1):
+the layer's output, aux loss and gradients against the plain version at
+capacity factor 8, both ranks the same bits, each collective's ms and
+bytes.
+
 The cross-attention families (``lm_context_phases``, phase
 ``lm_context_families``): llama-3.2-vision-11b (40 layers, a cross layer
 every 5, 1600 patch tokens through the adapter) and whisper-large-v3 (32
@@ -3434,6 +3449,602 @@ def lm_family_phases() -> dict:
     return entries
 
 
+# Expert parallelism (``moe_ep_phase``, phase ``moe_ep``):
+# moonshot-v1-16b-a3b at full width under ``activate`` on the card's
+# (1, 1) host mesh, where ``moe_ep`` is the default strategy of every
+# model pass.  One layer at T = 1024 (``MOE_LAYER_TOKENS``), where moe_ep's
+# per-shard capacity C = max(int(1.25 k T / E), k, min(T k, 32)) = 120 is
+# ``moe_sort``'s; the whole model's prefills at the lengths where the two
+# capacities agree (and at 128 tokens, where moe_ep's floor of 32 keeps what
+# moe_sort's C = 15 drops: reported) and a 4-slot decode step (C = 24 =
+# k T: moe_ep drops nothing, as the step at lifted capacity); two gloo
+# ranks on ``cuda:0`` at mesh shapes (1, 2) under DECODE_RULES (experts
+# split, one psum) and (2, 1) under DEFAULT_RULES (data split, the
+# experts' FSDP gather, the aux loss's pmean), at capacity factor 8.
+MOE_EP_ARCH = "moonshot-v1-16b-a3b"
+MOE_EP_PREFILLS = ((1, 1024), (4, 512))      # (requests, length), gated
+MOE_EP_SHORT = (1, 128)                      # reported
+MOE_EP_AUX_COEF = 3.0        # the aux loss's weight in the differentiated sum
+MOE_EP_RANK_CASES = (((1, 2), "decode"), ((2, 1), "default"))
+MOE_EP_RANK_TIMEOUT_S = 240
+# the two ranks against the plain version in f32 (TF32 off): outputs within
+# MOE_EP_RANK_TOL of max|y|, the aux loss within it relative, gradients
+# within it of their norms (the rank's sums run in another order)
+MOE_EP_RANK_TOL = 1e-5
+MOE_EP_RANK = r'''
+import json
+import sys
+
+import chip_smoke
+
+chip_smoke.moe_ep_rank(int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3]))
+'''
+
+
+def moe_layer_inputs(cfg, dev, B, S):
+    """One MoE layer of ``cfg`` at its width, seed-0 weights drawn on
+    ``dev`` in f32, B x S tokens sharing a component of half their scale
+    (``moe_layer_check``'s) and a cotangent of their shape."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import materialize
+
+    gen = torch.Generator(dev).manual_seed(0)
+    params = materialize(gen, moe_lib.moe_spec(cfg), device=dev)
+    D = cfg.d_model
+    x = (torch.randn(B, S, D, generator=gen, device=dev)
+         + 0.5 * torch.randn(1, 1, D, generator=gen, device=dev))
+    return params, x, torch.randn(B, S, D, generator=gen, device=dev)
+
+
+def moe_grads(run, params, x, cot):
+    """``run(params, x)`` -> (y, aux) and the gradients of ``sum(y cot) +
+    MOE_EP_AUX_COEF aux`` by x and each weight, all detached."""
+    import torch
+
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xx = x.detach().requires_grad_()
+    y, aux = run(p, xx)
+    grads = torch.autograd.grad(
+        (y.float() * cot).sum() + MOE_EP_AUX_COEF * aux, [*p.values(), xx])
+    return y.detach(), aux.detach(), dict(zip([*p, "x"], grads))
+
+
+def plain_ep(params, x, cfg, dp: int):
+    """The plain version of ``moe_ep`` on ``dp`` data shards of x's rows
+    where neither drops an assignment: ``moe_sort``'s output on the whole
+    batch, and the mean of the shards' load-balance losses."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    y, _ = moe_lib.moe_sort(params, x, cfg)
+    auxes = []
+    for xs in x.chunk(dp):
+        probs, _, top_e = moe_lib._route(params, xs.reshape(-1, x.shape[-1]),
+                                         cfg.moe)
+        auxes.append(moe_lib._load_balance_loss(probs, top_e, cfg.moe))
+    return y, torch.stack(auxes).sum() / dp
+
+
+def moe_drops(params, x, cfg, C: int) -> int:
+    """Assignments of x's tokens past position ``C`` of their expert."""
+    from repro_torch.models import moe as moe_lib
+
+    _, _, top_e = moe_lib._route(params, x.reshape(-1, x.shape[-1]), cfg.moe)
+    return int((moe_lib._positions(top_e, cfg.moe.n_experts) >= C).sum())
+
+
+def sketch(t):
+    """Two 64-bit random linear sketches of ``t``'s bits (seeded weights,
+    the same on every rank)."""
+    import torch
+
+    bits = t.reshape(-1).view(torch.int32).to(torch.int64)
+    out = []
+    for j in range(2):
+        gen = torch.Generator(t.device).manual_seed(j)
+        w = torch.randint(-2 ** 62, 2 ** 62, bits.shape, generator=gen,
+                          device=t.device, dtype=torch.int64)
+        out.append((bits * w).sum())
+    return torch.stack(out)
+
+
+def moe_ep_rank(rank: int, out: str, spec: dict) -> None:
+    """One of two gloo ranks of the phase's case (c): for each (mesh
+    shape, rules) of ``spec["cases"]`` the layer's ``moe_ep`` forward and
+    backward on a ``DeviceMesh`` of that shape over both ranks, against
+    ``plain_ep`` in this process; every collective's payload, group size
+    and synchronized ms recorded.  Writes ``rank<r>.json`` under ``out``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import sharding
+    from repro_torch.configs import get
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import partition
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(out + "/store", 2),
+                            rank=rank, world_size=2)
+    try:
+        dev = torch.device("cuda", 0)
+        cfg = get(spec["arch"])
+        cfg = cfg.replace(compute_dtype="float32", moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        params, x, cot = moe_layer_inputs(cfg, dev, 2, spec["tokens"] // 2)
+        calls, stage = [], {"now": None}
+        reduce_, gather_ = partition._all_reduce, partition._gather_blocks
+
+        def timed(op, fn, size):
+            def run(t, group, *a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(t, group, *a)
+                torch.cuda.synchronize()
+                groups = group if isinstance(group, list) else [group]
+                calls.append({"op": op, "stage": stage["now"],
+                              "bytes": t.numel() * t.element_size(),
+                              "ranks": [dist.get_world_size(g)
+                                        for g in groups],
+                              "wire_bytes": size(t, groups),
+                              "ms": (time.perf_counter() - t0) * 1e3})
+                return r
+            return run
+
+        def ring_reduce(t, groups):
+            n = t.numel() * t.element_size()
+            return sum(2 * (w - 1) * n // w for w in
+                       (dist.get_world_size(g) for g in groups))
+
+        def ring_gather(t, groups):
+            return ((dist.get_world_size(groups[0]) - 1) * t.numel()
+                    * t.element_size())
+
+        partition._all_reduce = timed("all_reduce", reduce_, ring_reduce)
+        partition._gather_blocks = timed("all_gather", gather_, ring_gather)
+        rows = []
+        for shape, rules_name in spec["cases"]:
+            mesh = init_device_mesh("cuda", tuple(shape),
+                                    mesh_dim_names=("data", "model"))
+            rules = {"default": sharding.DEFAULT_RULES,
+                     "decode": sharding.DECODE_RULES}[rules_name]
+            dp = shape[0]
+            calls.clear()
+
+            def run(p, xx):
+                stage["now"] = "forward"
+                with sharding.activate(mesh, rules):
+                    out = moe_lib.moe_ep(p, xx, cfg)
+                stage["now"] = "backward"
+                return out
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux, g = moe_grads(run, params, x, cot)
+            torch.cuda.synchronize()
+            total_ms = (time.perf_counter() - t0) * 1e3
+            py, paux, pg = moe_grads(
+                lambda p, xx: plain_ep(p, xx, cfg, dp), params, x, cot)
+            T_loc = x.shape[0] * x.shape[1] // dp
+            C = moe_lib._ep_capacity(T_loc, cfg.moe)
+            drops = sum(moe_drops(params, xs, cfg, C) for xs in x.chunk(dp))
+            mine = torch.cat([sketch(y), sketch(aux.reshape(1))]
+                             + [sketch(g[k]) for k in sorted(g)])
+            both = [torch.empty_like(mine) for _ in range(2)]
+            dist.all_gather(both, mine)
+            scale = float(py.abs().max())
+            rows.append({
+                "mesh": list(shape), "rules": rules_name, "capacity": C,
+                "tokens_a_data_shard": T_loc, "dropped_assignments": drops,
+                "ranks_equal": bool(torch.equal(both[0], both[1])),
+                "y_max_abs_err": float((y - py).abs().max()),
+                "max_abs_y": scale,
+                "aux": float(aux), "plain_aux": float(paux),
+                "aux_rel_err": abs(float(aux) / float(paux) - 1),
+                "grad_rel_err": {k: float((g[k] - pg[k]).norm()
+                                          / pg[k].norm()) for k in g},
+                "forward_and_backward_ms": total_ms,
+                "collectives": list(calls)})
+            del y, aux, g, py, paux, pg
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump({"rows": rows, "backend": dist.get_backend(),
+                       "device": str(dev),
+                       "peak_memory_gb":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                       "jax_or_repro_imported": any(
+                           m == "jax" or m == "repro"
+                           or m.startswith("repro.") for m in sys.modules)},
+                      f)
+    finally:
+        dist.destroy_process_group()
+
+
+def moe_ep_layer_check(cfg, dev, mesh) -> dict:
+    """Case (a): one layer of ``cfg`` at full width on ``MOE_LAYER_TOKENS``
+    tokens (``moe_layer_inputs``), where moe_ep's capacity is moe_sort's.
+    In f32 (the caller turns TF32 off) and in bf16, under DEFAULT_RULES
+    (FSDP: the experts cross a gather of one rank) and DECODE_RULES:
+    moe_ep under ``activate(mesh, rules)`` against moe_sort, the output,
+    the aux loss and the gradients of x and the four weights bit for bit,
+    with ``torch.use_deterministic_algorithms`` on (the gradient of a
+    gather adds a token's slots with atomics otherwise); without it, the
+    largest gap of moe_ep to moe_sort and of moe_sort to itself."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import tree_map
+
+    T = MOE_LAYER_TOKENS
+    f32 = cfg.replace(compute_dtype="float32")
+    params, x, cot = moe_layer_inputs(f32, dev, 1, T)
+    C = moe_lib._ep_capacity(T, cfg.moe)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        p = tree_map(lambda t: t.to(dtype), params)
+        xd = x.to(dtype)
+        for name, rules in (("default", sharding.DEFAULT_RULES),
+                            ("decode", sharding.DECODE_RULES)):
+            def ep(q, xx):
+                with sharding.activate(mesh, rules):
+                    return moe_lib.moe_ep(q, xx, cfg)
+
+            def sort(q, xx):
+                return moe_lib.moe_sort(q, xx, cfg)
+
+            def gaps(a, b):
+                return max([float((a[0].float() - b[0].float()).abs().max()),
+                            abs(float(a[1]) - float(b[1]))]
+                           + [float((a[2][k].float() - b[2][k].float())
+                                    .abs().max()) for k in a[2]])
+
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a, b = (moe_grads(f, p, xd, cot) for f in (ep, sort))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            equal = {"y": torch.equal(a[0], b[0]),
+                     "aux": torch.equal(a[1], b[1]),
+                     **{f"grad_{k}": torch.equal(a[2][k], b[2][k])
+                        for k in a[2]}}
+            del a, b
+            a, b, b2 = (moe_grads(f, p, xd, cot) for f in (ep, sort, sort))
+            rows.append({"dtype": str(dtype).split(".")[-1], "rules": name,
+                         "bit_equal": equal,
+                         "nondeterministic_max_gap_ep_to_sort": gaps(a, b),
+                         "nondeterministic_max_gap_sort_to_itself":
+                             gaps(b, b2),
+                         "ok": all(equal.values())})
+            del a, b, b2
+    return {"tokens": T, "capacity_moe_ep": C,
+            "capacity_moe_sort": moe_lib._capacity(T, cfg.moe),
+            "dropped_assignments": moe_drops(params, x, cfg, C),
+            "rows": rows,
+            "ok": (C == moe_lib._capacity(T, cfg.moe)
+                   and all(r["ok"] for r in rows))}
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Count the calls of ``models.moe``'s moe_ep and moe_sort while
+    open."""
+    from repro_torch.models import moe as moe_lib
+
+    counts = {"moe_ep": 0, "moe_sort": 0}
+    real = {k: getattr(moe_lib, k) for k in counts}
+
+    def counted(name):
+        def run(*a, **k):
+            counts[name] += 1
+            return real[name](*a, **k)
+        return run
+
+    for k in counts:
+        setattr(moe_lib, k, counted(k))
+    try:
+        yield counts
+    finally:
+        for k, f in real.items():
+            setattr(moe_lib, k, f)
+
+
+def moe_ep_model_check(cfg, dev, mesh) -> dict:
+    """Case (b): ``cfg`` whole in its compute dtype with seed-0 weights
+    drawn on ``dev``, through ``Model.prefill`` and ``decode_step`` (default
+    strategy ``"ep"``) under ``activate(mesh, DECODE_RULES)`` against the
+    same calls with no mesh (``moe_sort``): each prefill of
+    ``MOE_EP_PREFILLS`` gives the unplaced logits and cache bit for bit,
+    one moe_ep call and no moe_sort call a layer, one flash_attention
+    launch a layer; a 4-slot decode step on the (4, 512) caches gives the
+    unplaced step's logits at lifted capacity (factor n_experts) bit for
+    bit; the gap to the unplaced step at the published capacity and that
+    capacity's drops are recorded, as is ``MOE_EP_SHORT``'s prefill gap
+    (moe_ep's floor keeps what moe_sort drops).  Each call runs twice; the
+    second is timed (host ms to a synchronize) and counted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import pattern_for
+
+    model = build(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    pattern, n_super, _, _ = pattern_for(cfg)
+    per_prefill = n_super * pattern.count("attn")
+    n_moe = n_super * pattern.count("moe")
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def timed(fn):
+        # a call first: the first pays lazy set-up (the size-1 groups'
+        # communicators); a prefill or step again writes the same keys and
+        # values to the cache
+        fn()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_calls() as calls:
+            out = fn()
+        torch.cuda.synchronize()
+        return out, {"host_ms": (time.perf_counter() - t0) * 1e3,
+                     "flash_attention": ops.launch_counts()[
+                         "flash_attention"], **calls}
+
+    def placed(fn):
+        def run():
+            with sharding.activate(mesh, sharding.DECODE_RULES):
+                return fn()
+        return run
+
+    prefills, flash = [], 0
+    caches = None
+    for B, L in (*MOE_EP_PREFILLS, MOE_EP_SHORT):
+        toks = torch.randint(1, cfg.vocab, (B, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+        cu, cp = model.init_cache(B, L + 1), model.init_cache(B, L + 1)
+        (lu, _), plain = timed(lambda: model.prefill(
+            params, {"tokens": toks}, cu))
+        (lp, _), ep = timed(placed(lambda: model.prefill(
+            params, {"tokens": toks}, cp)))
+        T = B * L
+        gated = (B, L) != MOE_EP_SHORT
+        row = {"requests": B, "length": L,
+               "capacity_moe_ep": moe_lib._ep_capacity(T, cfg.moe),
+               "capacity_moe_sort": moe_lib._capacity(T, cfg.moe),
+               "logits_bit_equal": torch.equal(lu, lp),
+               "max_abs_gap": float((lu - lp).abs().max()),
+               "cache_bit_equal": all(
+                   torch.equal(cu["blocks"][k][n], cp["blocks"][k][n])
+                   for k in cu["blocks"] for n in cu["blocks"][k]),
+               "unplaced": plain, "placed": ep, "gated": gated}
+        row["ok"] = bool(
+            torch.isfinite(lp).all()
+            and ep["flash_attention"] == per_prefill
+            and ep["moe_ep"] == n_moe and ep["moe_sort"] == 0
+            and (not gated or (row["logits_bit_equal"]
+                               and row["cache_bit_equal"]
+                               and row["capacity_moe_ep"]
+                               == row["capacity_moe_sort"])))
+        flash += ep["flash_attention"]
+        prefills.append(row)
+        if (B, L) == (4, 512):
+            caches, last = (cu, cp), (lu, L)
+        del cu, cp
+    (cu, cp), (lu, L) = caches, last
+    tok = lu.argmax(-1).to(torch.int32)
+    pos = torch.full((4,), L, dtype=torch.int32, device=dev)
+    lift = build(cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts))), device=dev)
+    (dp, _), ep = timed(placed(lambda: model.decode_step(params, tok, cp,
+                                                         pos)))
+    (dl, _), lifted = timed(lambda: lift.decode_step(params, tok, cu, pos))
+    (dq, _), published = timed(lambda: model.decode_step(params, tok, cu,
+                                                         pos))
+    drops = []
+    route = moe_lib._route
+
+    def recorded(p, x2d, m):
+        out = route(p, x2d, m)
+        C = moe_lib._capacity(x2d.shape[0], m)
+        drops.append((moe_lib._positions(out[2], m.n_experts) >= C).sum())
+        return out
+
+    moe_lib._route = recorded
+    try:
+        model.decode_step(params, tok, cu, pos)
+    finally:
+        moe_lib._route = route
+    decode = {
+        "slots": 4, "position": L,
+        "capacity_moe_ep": moe_lib._ep_capacity(4, cfg.moe),
+        "capacity_lifted": moe_lib._capacity(4, lift.cfg.moe),
+        "capacity_published": moe_lib._capacity(4, cfg.moe),
+        "logits_bit_equal_to_lifted": torch.equal(dp, dl),
+        "max_abs_gap_to_published": float((dp - dq).abs().max()),
+        "rel_l2_gap_to_published": float((dp - dq).norm() / dq.norm()),
+        "published_dropped_assignments": int(torch.stack(drops).sum()),
+        "placed": ep, "lifted": lifted, "published": published}
+    decode["ok"] = bool(decode["logits_bit_equal_to_lifted"]
+                        and decode["capacity_moe_ep"]
+                        == decode["capacity_lifted"]
+                        and ep["flash_attention"] == 0
+                        and ep["moe_ep"] == n_moe and ep["moe_sort"] == 0)
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "compute_dtype": cfg.compute_dtype, "params": model.param_count(),
+            "mesh": list(mesh.shape), "rules": "DECODE_RULES",
+            "prefills": prefills, "decode_step": decode,
+            "flash_attention_launches": flash,
+            "flash_attention_per_prefill": per_prefill,
+            "ok": all(r["ok"] for r in prefills) and decode["ok"]}
+
+
+def moe_ep_layer_times(cfg, dev, mesh) -> dict:
+    """bf16 device ms of one layer on ``MOE_LAYER_TOKENS`` tokens: moe_ep
+    under ``activate(mesh, DECODE_RULES)`` and moe_sort, forward and
+    forward + backward, least of 10; GPU activities of one forward of each
+    (the size-1 psum, pmean and gathers are moe_ep's extra); the bound:
+    ``moe_layer_check``'s."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import tree_map
+
+    T, m, D = MOE_LAYER_TOKENS, cfg.moe, cfg.d_model
+    params, x, cot = moe_layer_inputs(cfg.replace(compute_dtype="float32"),
+                                      dev, 1, T)
+    bf = tree_map(lambda t: t.to(torch.bfloat16), params)
+    xb = x.to(torch.bfloat16)
+
+    def ep(q, xx):
+        with sharding.activate(mesh, sharding.DECODE_RULES):
+            return moe_lib.moe_ep(q, xx, cfg)
+
+    def sort(q, xx):
+        return moe_lib.moe_sort(q, xx, cfg)
+
+    out = {}
+    for name, f in (("moe_ep", ep), ("moe_sort", sort)):
+        out[name] = {
+            "forward_ms": device_ms(lambda: f(bf, xb)),
+            "forward_backward_ms": device_ms(
+                lambda: moe_grads(f, bf, xb, cot)),
+            "forward_gpu_activities": gpu_trace(
+                lambda: f(bf, xb), f"{name}_layer", 1)["gpu_activities"]}
+    kept = T * m.top_k - moe_drops(params, x, cfg, moe_lib._capacity(T, m))
+    n_bytes = 2 * (3 * m.n_experts * D * m.d_ff + D * m.n_experts + 2 * T * D)
+    b_ms, b_by = bound_ms(n_bytes, 6.0 * D * m.d_ff * kept, BF16_FLOPS_PER_S)
+    return {"tokens": T, "dtype": "bfloat16", "rules": "DECODE_RULES",
+            **out, "extra_gpu_activities_of_moe_ep": (
+                out["moe_ep"]["forward_gpu_activities"]
+                - out["moe_sort"]["forward_gpu_activities"]),
+            "forward_bound_ms": b_ms, "bound_by": b_by,
+            "times": "device ms of one call, least of 10"}
+
+
+def moe_ep_phase() -> dict:
+    """Expert parallelism on the card (phase ``moe_ep``): moonshot-v1-16b-a3b
+    at full width on the card's (1, 1) host mesh.  (a) one layer's moe_ep
+    against moe_sort bit for bit, forward and backward, f32 (TF32 off) and
+    bf16 (``moe_ep_layer_check``), and bf16 device ms of both
+    (``moe_ep_layer_times``); (b) the whole model's prefills and a decode
+    step under ``activate`` against its unplaced runs
+    (``moe_ep_model_check``); (c) two gloo ranks on ``cuda:0`` at (1, 2)
+    and (2, 1): the layer's outputs, aux loss and gradients against
+    ``plain_ep`` (capacity factor 8), both ranks the same bits, each
+    collective's ms and bytes.  Returns flash_attention's launches on (b)
+    for the ``kernels`` line."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = get(MOE_EP_ARCH)
+    created_group = not dist.is_initialized()
+    mesh = make_host_mesh()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        layer = moe_ep_layer_check(cfg, dev, mesh)
+        layer["times"] = moe_ep_layer_times(cfg, dev, mesh)
+        layer["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) before the whole model, so the ranks have the card's memory
+        t0 = time.perf_counter()
+        spec = {"arch": MOE_EP_ARCH, "tokens": MOE_LAYER_TOKENS,
+                "cases": [list(c) for c in MOE_EP_RANK_CASES]}
+        out = Path(tempfile.mkdtemp(prefix="moe_ep_ranks_"))
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MOE_EP_RANK, str(r), str(out),
+             json.dumps(spec)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=MOE_EP_RANK_TIMEOUT_S)
+                    for p in procs]
+            codes = [p.returncode for p in procs]
+            ranks = ([json.loads((out / f"rank{r}.json").read_text())
+                      for r in range(2)] if codes == [0, 0] else [])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            shutil.rmtree(out, ignore_errors=True)
+        if codes != [0, 0]:
+            raise SystemExit(f"moe_ep (c): ranks exited {codes}: "
+                             + " | ".join(e[-2000:] for _, e in outs))
+        rows = ranks[0]["rows"]
+        for r in rows:
+            r["ok"] = bool(
+                r["ranks_equal"] and r["dropped_assignments"] == 0
+                and r["y_max_abs_err"] <= MOE_EP_RANK_TOL * r["max_abs_y"]
+                and r["aux_rel_err"] <= MOE_EP_RANK_TOL
+                and max(r["grad_rel_err"].values()) <= MOE_EP_RANK_TOL)
+        two = {"ranks": 2, "backend": ranks[0]["backend"],
+               "device": ranks[0]["device"], "capacity_factor": 8.0,
+               "tol": f"{MOE_EP_RANK_TOL} of max|y|, relative for aux, of "
+                      "each gradient's norm",
+               "rows": rows,
+               "second_rank_rows": [{k: r[k] for k in (
+                   "ranks_equal", "y_max_abs_err", "aux_rel_err",
+                   "grad_rel_err", "forward_and_backward_ms")}
+                   for r in ranks[1]["rows"]],
+               "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+               "jax_or_repro_imported": any(r["jax_or_repro_imported"]
+                                            for r in ranks),
+               "seconds": time.perf_counter() - t0}
+        two["ok"] = bool(all(r["ok"] for r in rows)
+                         and not two["jax_or_repro_imported"]
+                         and two["backend"] == "gloo")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        model = moe_ep_model_check(cfg, dev, mesh)
+        model["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        if created_group:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = layer["ok"] and model["ok"] and two["ok"]
+    emit({"phase": "moe_ep", "card": card_line(), "model": cfg.name,
+          "width": {"d_model": cfg.d_model, "n_experts": cfg.moe.n_experts,
+                    "top_k": cfg.moe.top_k, "d_ff": cfg.moe.d_ff},
+          "layer": layer, "whole_model": model, "two_ranks": two,
+          "seconds": time.perf_counter() - t_phase, "ok": bool(ok)})
+    if not ok:
+        raise SystemExit("moe_ep: layer "
+                         f"{[r['bit_equal'] for r in layer['rows']]}, model "
+                         f"{[r['ok'] for r in model['prefills']]} decode "
+                         f"{model['decode_step']['ok']}, ranks "
+                         f"{[r['ok'] for r in rows]}")
+    return {"flash_attention": {
+        "launches": model["flash_attention_launches"],
+        "launches_per_prefill": model["flash_attention_per_prefill"]}}
+
+
 # The cross-attention families (``lm_context_families``), at full width
 # and depth in bf16 with seed-0 weights drawn on the card
 # (reference ``param_count``): llama-3.2-vision-11b's 9.78 B parameters
@@ -6571,6 +7182,9 @@ def main(argv=None) -> int:
     attn_entry = next(k for k in kernels if k["name"] == "flash_attention")
     for arch, entry in lm_family_phases().items():
         attn_entry["by_path"][f"lm_families_{arch}"] = entry
+    # expert parallelism: moonshot's prefills under activate, the counts
+    # zeroed just before each and read just after
+    attn_entry["by_path"]["moe_ep"] = moe_ep_phase()["flash_attention"]
     # the cross-attention families: the kernel's non-causal and
     # cross-length forms, each from its own run
     for arch, entry in lm_context_phases().items():

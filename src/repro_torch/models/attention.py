@@ -28,8 +28,14 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import constrain
 
 from .layers import P, apply_rope, matmul_f32
+
+# the logical axes of the (B, H, L, hd) queries and outputs, and of the
+# (B, Hkv, L, hd) keys and values, as the kernel takes them
+ATTN_AXES = ("batch", "heads", "attn_seq", "head_dim")
+KV_AXES = ("batch", "kv_heads", None, "head_dim")
 
 
 # --- parameter specs -----------------------------------------------------
@@ -140,9 +146,15 @@ def self_attention(params, x, cfg, *, positions=None, causal: bool = True,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, window=cfg.window)
+    # heads carry TP when they divide, else the sequence does (the
+    # "attn_seq" rule): head_dim never shards here
+    qt = constrain(q.transpose(1, 2), ATTN_AXES)
+    kt = constrain(k.transpose(1, 2), KV_AXES)
+    vt = constrain(v.transpose(1, 2), KV_AXES)
+    out = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                              vt.contiguous(), causal=causal,
+                              window=cfg.window)
+    out = constrain(out, ATTN_AXES)
     return _proj_out(params, out.transpose(1, 2), x.dtype)
 
 
@@ -177,9 +189,11 @@ def prefill_attention(params, x, cfg, cache, *, positions) -> tuple:
     slots = positions[:, 0]         # requests start at their first position
     _write_at(cache["k"], kt, slots)
     _write_at(cache["v"], vt, slots)
+    qt = constrain(q.transpose(1, 2), ATTN_AXES)
     out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), kt.contiguous(), vt.contiguous(),
-        causal=True, window=cfg.window)
+        qt.contiguous(), constrain(kt, KV_AXES).contiguous(),
+        constrain(vt, KV_AXES).contiguous(), causal=True, window=cfg.window)
+    out = constrain(out, ATTN_AXES)
     return _proj_out(params, out.transpose(1, 2), x.dtype), cache
 
 

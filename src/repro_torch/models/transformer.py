@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import constrain
+
 from . import attention as attn
 from . import layers
 from . import moe as moe_lib
@@ -407,6 +409,7 @@ def prefill(params, batch_inputs, cfg, cache, *, positions=None,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
+    x = constrain(x, ("batch", "seq", "embed_act"))
     ctx = _make_ctx("prefill", moe_strategy, positions=positions,
                     ctx_stream=_context_stream(params, cfg, batch_inputs))
     x = _stacks(params, cache, cfg, x, ctx)
@@ -420,6 +423,7 @@ def decode_step(params, token, cfg, cache, pos, *, ring: bool = False,
     (B, vocab), cache)."""
     params = cast_params(params, cfg)
     x = layers.embed_tokens(params["embed"], token[:, None], cfg.cdtype)
+    x = constrain(x, ("batch", None, None))
     ctx = _make_ctx("decode", moe_strategy, pos=pos, ring=ring)
     x = _stacks(params, cache, cfg, x, ctx)
     logits = layers.logits_out(params["embed"], x)
@@ -436,6 +440,7 @@ def forward_hidden(params, batch_inputs, cfg, *, moe_strategy="ep"):
     pattern, n_super, tail, n_tail = pattern_for(cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg.cdtype)
+    x = constrain(x, ("batch", "seq", "embed_act"))
     ctx = _make_ctx("train", moe_strategy, positions=positions,
                     ctx_stream=_context_stream(params, cfg, batch_inputs))
     x = _train_stack(cfg, x, params["blocks"], ctx, pattern, n_super,
@@ -443,6 +448,7 @@ def forward_hidden(params, batch_inputs, cfg, *, moe_strategy="ep"):
     if n_tail:
         x = _train_stack(cfg, x, params["tail"], ctx, tail, n_tail)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    x = constrain(x, ("batch", "seq", "embed_act"))
     aux = (torch.stack(ctx["moe_aux"]).sum() if ctx["moe_aux"] else
            torch.zeros((), dtype=torch.float32, device=x.device))
     return x, {"moe_aux": aux}

@@ -22,7 +22,9 @@ kernels.  Placing tensors on a mesh of more than one device needs
 collectives, which wait with the collectives slice (ROADMAP.md §1 item 7).
 :func:`shard_map` runs a function manual over mesh axes, one process a
 device: each rank takes its block of every input cut along a manual axis,
-and outputs cut along one are all-gathered back to the global array.  The
+and outputs cut along one are all-gathered back to the global array;
+gradients cross it, and its body's collectives (:func:`psum`,
+:func:`all_gather`) carry them with the reference's transposes.  The
 int8 error-feedback reduction (``train.compression.compressed_allreduce``)
 all-gathers over a ``ProcessGroup`` or an axis of the mesh made active
 here (:func:`active_mesh`), on any number of ranks.
@@ -371,11 +373,10 @@ def placed_like(tree: Any, like: Any) -> Any:
 
 # --- activation-constraint context ------------------------------------------
 #
-# Model code may annotate activations by logical axes unconditionally; the
+# Model code annotates activations by logical axes unconditionally (the
+# reference's calls in attention, MoE and the transformer's passes); the
 # constraint engages only inside ``activate(mesh, rules)`` and is a no-op
-# outside it.  (The port's model code makes no such call yet: the
-# reference's, in attention and MoE, come with ``moe_ep`` in the
-# collectives slice.)
+# outside it.  ``moe.moe_ep`` reads the active mesh and rules too.
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_sharding_active", default=None
@@ -482,6 +483,129 @@ def _manual_dims(leaf, spec: PartitionSpec, manual) -> list:
     return out
 
 
+def _block(t: torch.Tensor, cuts, sizes, mesh) -> torch.Tensor:
+    """The rank's block of ``t`` along each cut dim (``_manual_dims``), at
+    its coordinate on the dim's manual axes, the first major: a view."""
+    for d, axes in cuts:
+        n = math.prod(sizes[a] for a in axes)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + mesh.get_local_rank(a)
+        size = t.shape[d] // n
+        t = t.narrow(d, i * size, size)
+    return t
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    """A copy of ``t`` summed over the ranks of each group in turn."""
+    import torch.distributed as dist
+
+    t = t.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _gather_blocks(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks of ``group``'s ranks concatenated along ``dim`` in rank
+    order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _Cut(torch.autograd.Function):
+    """An input's block; backward: the block's cotangent placed at its
+    offset in zeros of the input's shape (where the block is not the whole
+    input) and summed over ``groups`` (every manual axis), so every rank
+    holds the global gradient."""
+
+    @staticmethod
+    def forward(ctx, leaf, cuts, sizes, mesh, groups):
+        ctx.shape, ctx.spec = leaf.shape, (cuts, sizes, mesh)
+        ctx.groups = groups
+        return _block(leaf, cuts, sizes, mesh)
+
+    @staticmethod
+    def backward(ctx, ct):
+        full = ct
+        if ct.shape != ctx.shape:
+            full = ct.new_zeros(ctx.shape)
+            _block(full, *ctx.spec).copy_(ct)
+        return _all_reduce(full, ctx.groups), None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """An output's blocks gathered over the manual axes its spec names;
+    backward: the rank's block of the cotangent over ``unnamed``, the
+    product of the manual axes the spec leaves out (every rank computes
+    the same global loss, as in the reference's transpose)."""
+
+    @staticmethod
+    def forward(ctx, leaf, cuts, sizes, mesh, unnamed):
+        ctx.spec, ctx.unnamed = (cuts, sizes, mesh), unnamed
+        for d, axes in cuts:
+            for a in reversed(axes):        # the minor axis first
+                leaf = _gather_blocks(leaf, mesh.get_group(a), d)
+        return leaf
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = _block(ct, *ctx.spec)
+        if ctx.unnamed > 1:
+            ct = ct / ctx.unnamed
+        return ct, None, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.groups), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, rank):
+        ctx.dim, ctx.group, ctx.rank = dim, group, rank
+        ctx.size = x.shape[dim]
+        return _gather_blocks(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = _all_reduce(ct, [ctx.group])
+        return (total.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None,
+                None, None)
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``jax.lax.psum`` in a :func:`shard_map` body: ``x`` summed over the
+    ranks of the mesh axis ``axes`` (a name, or a tuple of names).  Its
+    backward sums the cotangent alike, the reference's transpose under
+    ``check_vma=False``: a body output replicated over an axis it does not
+    name gets a share of the cotangent a rank (:func:`shard_map`)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return _Psum.apply(x, [mesh.get_group(a) for a in axes])
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)`` in a
+    :func:`shard_map` body: the blocks of ``axis``'s ranks concatenated
+    along ``dim``.  Its backward sums the cotangent over the axis and keeps
+    the rank's block (``psum_scatter``)."""
+    return _AllGather.apply(x, mesh.get_group(axis), dim,
+                            mesh.get_local_rank(axis))
+
+
 def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None,
               check_vma: bool = False):
     """``f`` run manual over ``axis_names`` (every axis of the mesh when
@@ -498,12 +622,21 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None,
     own value.  As in the reference under ``check_vma=False``, nothing
     checks that the ranks agree.  While ``f`` runs, the manual axes are
     recorded for :func:`constrain`.  An axis that is not manual must have
-    size 1:
-    placing tensors within a manual block waits with the collectives
-    slice.
-    """
-    import torch.distributed as dist
+    size 1: placing tensors within a manual block waits with the
+    collectives slice.
 
+    Gradients cross the map where a leaf requires them, with the
+    reference's semantics for a loss that every rank computes alike from
+    the global outputs.  An output's cotangent gives the rank its own
+    block, divided by the size of the manual axes the output's spec does
+    not name (the body computes such an output once a rank of them, or
+    sums it there with :func:`psum`, whose backward sums the cotangent
+    back).  An input's gradient is the rank's block placed at its offset
+    in zeros of the input's shape and summed over the ranks of every
+    manual axis, so each rank holds the global gradient.  A leaf that
+    does not require grad, or a call under ``torch.no_grad``, takes no
+    autograd node: the forward's tensors and bits are the same.
+    """
     sizes = mesh_axes(mesh)
     manual = (frozenset(sizes) if axis_names is None
               else frozenset(axis_names))
@@ -518,29 +651,26 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None,
             f"needs collectives, which wait with {_COLLECTIVES}")
     if isinstance(mesh, AbstractMesh):
         raise ValueError(f"{mesh!r} is shape-only: it has no ranks")
+    axes_in_order = [a for a in sizes if a in manual]
+
+    def differentiable(leaf) -> bool:
+        return (torch.is_tensor(leaf) and leaf.requires_grad
+                and torch.is_grad_enabled())
 
     def cut(leaf, spec):
-        for d, axes in _manual_dims(leaf, spec, manual):
-            n = math.prod(sizes[a] for a in axes)
-            if leaf.shape[d] % n:
-                raise ValueError(f"dim {d} of {tuple(leaf.shape)} does not "
-                                 f"split into {n} blocks over {axes}")
-            i = 0
-            for a in axes:
-                i = i * sizes[a] + mesh.get_local_rank(a)
-            size = leaf.shape[d] // n
-            leaf = leaf.narrow(d, i * size, size)
-        return leaf
+        cuts = _manual_dims(leaf, spec, manual)
+        if differentiable(leaf):
+            return _Cut.apply(leaf, cuts, sizes, mesh,
+                              [mesh.get_group(a) for a in axes_in_order])
+        return _block(leaf, cuts, sizes, mesh) if cuts else leaf
 
     def gather(leaf, spec):
-        for d, axes in _manual_dims(leaf, spec, manual):
-            for a in reversed(axes):        # the minor axis first
-                group = mesh.get_group(a)
-                parts = [torch.empty_like(leaf)
-                         for _ in range(dist.get_world_size(group))]
-                dist.all_gather(parts, leaf.contiguous(), group=group)
-                leaf = torch.cat(parts, dim=d)
-        return leaf
+        cuts = _manual_dims(leaf, spec, manual)
+        named = {a for _, axes in cuts for a in axes}
+        unnamed = math.prod(sizes[a] for a in manual - named)
+        if not cuts and not (differentiable(leaf) and unnamed > 1):
+            return leaf
+        return _Gather.apply(leaf, cuts, sizes, mesh, unnamed)
 
     def mapped(*args):
         specs = (tuple(in_specs for _ in args)
